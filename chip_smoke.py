@@ -6,14 +6,19 @@
     python3 chip_smoke.py --phases profile --out DIR  # profiler breakdown
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
-  1. card name and power limit, torch/CUDA versions; build every kernel.
+  1. card name and power limit, torch/CUDA versions; build every kernel
+     (one nvcc per source, all at once).
   2. kernels: each hand-written kernel against its plain PyTorch version
-     on the card, at the main path's shapes and on edge cases.
+     on the card, at the main path's shapes and on edge cases, then timed
+     beside its plain version and its bound.
   3. field: the release-width CHORE field (f32, seeded random weights):
      encode 1x512^2x5, then query 50k points.
-  4. fit: ``ReconFitter.fit_batch(use_silhouette=False)`` with the release
-     FitConfig/SamplerConfig on a synthetic frame; one warm-up, one timed
-     run with per-stage times; every kernel of the path must have launched.
+  4. fit: a small fit on the card against the CPU, both schedules; then
+     ``ReconFitter.fit_batch()`` at its defaults (the silhouette phase on)
+     and once with ``use_silhouette=False``, release FitConfig/SamplerConfig,
+     on a synthetic frame whose masks are a person box and an object disk;
+     one warm-up, then timed runs with per-stage times; every kernel of each
+     path must have launched in that path's run.
   5. the kernel table as one JSON line, then the result line.
 
 Needs a CUDA device; exits non-zero without one.
@@ -37,6 +42,13 @@ PEAK_BYTES = 3.35e12
 # compute |x|^2 - 2x.y + |y|^2 in f32 with different summation orders; at
 # |x|^2 ~ 5 (points near z = 2.2) an ulp is ~5e-7, so 5e-5 is ~100 ulps
 NN_DIST_TOL = 5e-5
+# coverage kernels against their plain versions: both evaluate d_e op by
+# op in one order (the same routing), so they differ only in the order of
+# f32 sums -- over up to thousands of faces for the coverage (1e-5 of
+# max(1, the sum)), over pixels for the gradient (1e-5 of its largest
+# element)
+COV_REL_TOL = 1e-5
+COV_GRAD_REL_TOL = 1e-5
 
 PHASES = ("kernels", "field", "fit")
 
@@ -176,6 +188,135 @@ def time_nn(torch, dev):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def coverage_case(torch, dev, S=256, subdiv=2, focal=4.6, widen=1.0, B=1,
+                  shift=(0.0, 0.0), bad=False, g_kind="loss"):
+    """(e, g, S, inv_sigma) of a K2/K3 case. The defaults are the main
+    path's shape: the 128-face template fills ~75% of the 256^2 ROI as the
+    sil phase renders it (the ROI is the object-mask bbox grown by 30%),
+    and g is the gradient of the sil loss (keep * clip(raw) - ref)^2
+    against a shifted disk."""
+    from chore_tpu_torch.ops.rasterizer import _Clip01, project_unit_k
+    from chore_tpu_torch.ops.silhouette import coverage_sums_plain, edge_coeffs
+    from chore_tpu_torch.utils.meshio import octasphere
+
+    tv, tf = octasphere(radius=0.18, center=(0.0, 0.0, 2.2), subdiv=subdiv)
+    verts = torch.as_tensor(tv)[None].repeat(B, 1, 1)
+    for b in range(1, B):
+        verts[b] += torch.tensor([0.02 * b, -0.01 * b, 0.1 * b])
+    K = torch.tensor([[focal, 0, 0.5], [0, focal, 0.5], [0, 0, 1]])
+    ndc = project_unit_k(verts, K.expand(B, 3, 3))
+    ndc[..., 0] += shift[0]
+    ndc[..., 1] += shift[1]
+    if bad:  # a vertex behind the camera and a degenerate face
+        ndc[0, 0, 2] = -1.0
+        ndc[0, 1] = ndc[0, 2]
+    sigma = widen * 0.5 * (2.0 / S)
+    e = edge_coeffs(ndc.to(dev), torch.as_tensor(tf, device=dev),
+                    sigma).contiguous()
+    inv = 1.0 / sigma
+    P = S * S
+    if g_kind == "zero":
+        g = torch.zeros((B, P), device=dev)
+    else:
+        c = (2.0 * torch.arange(S, device=dev) + 1.0) / S - 1.0
+        yy, xx = torch.meshgrid(c, c, indexing="ij")
+        ref = (((xx - 0.08) ** 2 + (yy + 0.05) ** 2) < 0.7 ** 2).float()
+        keep = 1.0 - ((xx < -0.3) & (yy > 0.2) & (ref == 0)).float()
+        raw = coverage_sums_plain(e, S, inv).requires_grad_(True)
+        img = keep * _Clip01.apply(raw).reshape(B, S, S)
+        (g,) = torch.autograd.grad(((img - ref) ** 2).sum(), raw)
+        if g_kind == "sparse":
+            gen = torch.Generator(device=dev).manual_seed(2)
+            keep_g = torch.rand(g.shape, generator=gen, device=dev) < 0.02
+            g = torch.where(keep_g, g, torch.zeros_like(g))
+    return e, g.contiguous(), S, inv
+
+
+def coverage_cases():
+    """(name, kwargs): the main path's shape first."""
+    return [
+        ("main_256_128faces", {}),
+        ("faces_2048", dict(subdiv=4)),
+        ("faces_8192", dict(subdiv=5)),
+        ("degenerate_behind_camera", dict(bad=True)),
+        ("offscreen", dict(shift=(5.0, 0.0))),
+        ("zero_g", dict(g_kind="zero")),
+        ("sparse_g", dict(g_kind="sparse")),
+        ("size_100", dict(S=100)),
+        ("sigma_x4", dict(widen=4.0)),
+        ("batch2", dict(B=2)),
+    ]
+
+
+def check_coverage(torch, dev):
+    """K2 and K3 against their plain versions in every case; K3 twice,
+    bitwise equal. Returns the worst absolute errors (fwd, bwd)."""
+    from chore_tpu_torch.ops import silhouette as tsil
+
+    worst_f = worst_b = 0.0
+    for name, kw in coverage_cases():
+        e, g, S, inv = coverage_case(torch, dev, **kw)
+        cov = tsil.coverage_sums_cuda(e, S, inv)
+        de = tsil.coverage_sums_bwd_cuda(e, g, S, inv)
+        de2 = tsil.coverage_sums_bwd_cuda(e, g, S, inv)
+        cov_p = tsil.coverage_sums_plain(e, S, inv)
+        de_p = tsil.coverage_sums_bwd_plain(e, g, S, inv)
+        torch.cuda.synchronize()
+        err_f = (cov - cov_p).abs().max().item()
+        err_b = (de - de_p).abs().max().item()
+        scale = de_p.abs().max().item()
+        repeat = bool(torch.equal(de, de2))
+        log(f"  coverage {name}: B={e.shape[0]} F={e.shape[-1]} S={S} "
+            f"max cov {cov_p.max().item():.4g}, max|cov-plain|={err_f:.3g}; "
+            f"max|de| {scale:.4g}, max|de-plain|={err_b:.3g}; "
+            f"bwd bitwise repeat={repeat}")
+        ok = (err_f <= COV_REL_TOL * max(1.0, cov_p.abs().max().item())
+              and err_b <= COV_GRAD_REL_TOL * max(scale, 1e-30) and repeat)
+        if name == "offscreen":  # everything culled: exact zeros
+            ok &= cov.abs().max().item() == 0.0 and de.abs().max().item() == 0.0
+        elif name == "zero_g":
+            ok &= de.abs().max().item() == 0.0
+        else:
+            ok &= cov.max().item() > 0.5 and scale > 0
+        if not ok:
+            raise SystemExit(f"coverage kernels disagree with plain on {name}")
+        worst_f, worst_b = max(worst_f, err_f), max(worst_b, err_b)
+    return worst_f, worst_b
+
+
+def time_coverage(torch, dev):
+    """K2 and K3 at the main path's shape, each beside its plain version
+    and its bound; the bound counts the (pixel, face) pairs this input
+    leaves live: dmin > -16 for K2, and with g != 0 for K3."""
+    from chore_tpu_torch.ops import silhouette as tsil
+
+    e, g, S, inv = coverage_case(torch, dev)
+    B, F, P = e.shape[0], e.shape[-1], S * S
+    pix = tsil.pixel_coords(S, inv, dev)
+    d, t = tsil._tile_terms(e, pix, slice(0, F))
+    live = tsil._dmin(d, t)[2] > -tsil.COVERAGE_CUTOFF  # (B, P, F)
+    pairs_f = float(live.sum().item())
+    pairs_b = float((live & (g[:, :, None] != 0)).sum().item())
+    out = {}
+    # ~30 f32 ops per live pair forward (3 edges x 4, 4 box, 7 mins, the
+    # cutoff, sigmoid ~4, the sum), ~45 backward (+ ds, routing, 3 sums);
+    # bytes: e and the output (and g) once each
+    for name, fn, plain, ops, nbytes in (
+            ("coverage_fwd", lambda: tsil.coverage_sums_cuda(e, S, inv),
+             lambda: tsil.coverage_sums_plain(e, S, inv), 30.0 * pairs_f,
+             4.0 * (B * 24 * F + B * P)),
+            ("coverage_bwd", lambda: tsil.coverage_sums_bwd_cuda(e, g, S, inv),
+             lambda: tsil.coverage_sums_bwd_plain(e, g, S, inv),
+             45.0 * pairs_b, 4.0 * (2 * B * 24 * F + B * P))):
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[name] = {"ms": cuda_ms(fn, 200), "plain_ms": cuda_ms(plain, 20),
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    log(f"  coverage main shape: B={B} S={S} F={F}; live pairs fwd "
+        f"{pairs_f:.0f} / bwd {pairs_b:.0f} of {B * P * F}")
+    return out
+
+
 # --------------------------------------------------------------------- #
 # phase 3: the release-width field
 FIELD_TOL = 1e-3  # card vs CPU, f32 with TF32 off: conv summation order
@@ -223,7 +364,7 @@ def run_field(torch, dev, card):
 
 
 # --------------------------------------------------------------------- #
-# phase 4: the slice, fit_batch without the silhouette phase
+# phase 4: the slice, fit_batch with and without the silhouette phase
 TRACE_TOL = 1e-3  # card vs CPU per-step loss, relative (f32 noise)
 
 
@@ -251,8 +392,13 @@ class _FixedJitter:
 
 
 def synthetic_frame(size):
+    """Random RGB; channel 3 a person box, channel 4 an object disk at the
+    centre (so the silhouette ROI is a real crop of the frame)."""
     rng = np.random.RandomState(0)
     images = rng.rand(1, size, size, 5).astype(np.float32)
+    yy, xx = (np.mgrid[:size, :size] + 0.5) / size
+    images[0, ..., 3] = (np.abs(xx - 0.42) < 0.14) & (np.abs(yy - 0.55) < 0.3)
+    images[0, ..., 4] = (xx - 0.5) ** 2 + (yy - 0.5) ** 2 < 0.12 ** 2
     cc = np.array([[1018.0, 779.0]], np.float32)
     pose = (rng.randn(1, 72) * 0.05).astype(np.float32)
     betas = np.zeros((1, 10), np.float32)
@@ -276,86 +422,111 @@ def make_fitter(dev, field_cfg, fit_cfg, samp_cfg, record=False):
 
 def check_small_fit(torch, dev):
     """A small fit on the card (kernel route) and on the CPU (plain route)
-    from the same weights and draws: the per-step loss traces agree."""
+    from the same weights and draws, with and without the silhouette
+    phase: the per-step loss traces agree."""
     from chore_tpu_torch.models.chore import FieldConfig
     from chore_tpu_torch.recon.fitter import FitConfig
     from chore_tpu_torch.recon.generator import SamplerConfig, make_draws
 
     fc = FieldConfig(num_stack=2)
-    fit = FitConfig(iter_kpts_max=2, iter_obj=2, iter_joint_max=4,
+    fit = FitConfig(iter_kpts_max=2, iter_obj=2, iter_sil=2, iter_joint_max=4,
                     steps_per_iter=3, obj_samples=500, net_in_size=64,
-                    svd_jitter=False)
+                    sil_rend_size=64, svd_jitter=False)
     samp = SamplerConfig(num_steps=2, sample_num=512, num_rounds=2,
                          num_points=256)
     frame = synthetic_frame(64)
     g = torch.Generator().manual_seed(1)
     draws = {k: make_draws(samp, 1, g, "cpu") for k in ("human", "object")}
-    traces = []
-    with _FixedJitter(torch):
-        for d in (dev, torch.device("cpu")):
-            f = make_fitter(d, fc, fit, samp, record=True)
-            dr = {k: {n: v.to(d) for n, v in x.items()}
-                  for k, x in draws.items()}
-            out = f.fit_batch(*frame, use_silhouette=False, draws=dr)
-            traces.append(np.concatenate([
-                out[c][p]["loss"].ravel() for c, ps in
-                (("smpl_trace", ("global", "pose_kpts")),
-                 ("obj_trace", ("obj", "joint"))) for p in ps]))
-    a, b = traces
-    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
-    log(f"  small fit card vs CPU: {len(a)} steps, max rel trace diff "
-        f"{rel.max():.3g} (tol {TRACE_TOL})")
-    if not rel.max() <= TRACE_TOL:
-        raise SystemExit("fit: card trace disagrees with the CPU trace")
+    for use_sil in (False, True):
+        traces = []
+        obj_phases = ("obj", "sil", "joint") if use_sil else ("obj", "joint")
+        with _FixedJitter(torch):
+            for d in (dev, torch.device("cpu")):
+                f = make_fitter(d, fc, fit, samp, record=True)
+                dr = {k: {n: v.to(d) for n, v in x.items()}
+                      for k, x in draws.items()}
+                out = f.fit_batch(*frame, use_silhouette=use_sil, draws=dr)
+                traces.append(np.concatenate([
+                    out[c][p]["loss"].ravel() for c, ps in
+                    (("smpl_trace", ("global", "pose_kpts")),
+                     ("obj_trace", obj_phases)) for p in ps]))
+        a, b = traces
+        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
+        log(f"  small fit card vs CPU, use_silhouette={use_sil}: {len(a)} "
+            f"steps, max rel trace diff {rel.max():.3g} (tol {TRACE_TOL})")
+        if not rel.max() <= TRACE_TOL:
+            raise SystemExit("fit: card trace disagrees with the CPU trace")
 
 
-def run_fit(torch, dev, card, nn_mod):
+def run_fit(torch, dev, card, counters):
+    """The release fit at its defaults (the silhouette phase on), then once
+    without it. ``counters``: {kernel name: (launch dict, key)}; every
+    count is zeroed just before a timed fit and read just after."""
     from chore_tpu_torch.models.chore import FieldConfig
     from chore_tpu_torch.recon.fitter import FitConfig
     from chore_tpu_torch.recon.generator import SamplerConfig
 
     check_small_fit(torch, dev)
-    fitter = make_fitter(dev, FieldConfig(), FitConfig(),
-                         SamplerConfig())
+    fitter = make_fitter(dev, FieldConfig(), FitConfig(), SamplerConfig())
     frame = synthetic_frame(512)
 
-    def run(seed, block):
+    def run(seed, **kw):
         g = torch.Generator(device=dev).manual_seed(seed)
+        for d, k in counters.values():
+            d[k] = 0
+        fitter.timer.reset()
         t0 = time.perf_counter()
-        out = fitter.fit_batch(*frame, generator=g, use_silhouette=False,
-                               block_per_stage=block)
+        out = fitter.fit_batch(*frame, generator=g, block_per_stage=True,
+                               **kw)
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+        sec = time.perf_counter() - t0
+        counts = {name: d[k] for name, (d, k) in counters.items()}
+        stages = {k: v["mean_ms"] for k, v in fitter.timer.summary().items()}
+        tensors = [*out["smpl_params"].values(), *out["obj_params"].values(),
+                   out["obj_R"], out["scale"],
+                   *[v for pc in out["pclouds"].values() for v in pc.values()
+                     if torch.is_floating_point(v)]]
+        if not all(bool(torch.isfinite(v).all()) for v in tensors):
+            raise SystemExit("fit: non-finite output")
+        return out, sec, counts, stages
 
-    _, warm_s = run(0, False)
+    _, warm_s, _, _ = run(0)
     log(f"  fit warm-up: {warm_s:.3f} s")
-    fitter.timer.reset()
-    nn_mod.launches["nn_grouped"] = 0  # count the main path's run only
-    out, sec = run(1, True)
-    launches = nn_mod.launches["nn_grouped"]
-    stages = {k: v["mean_ms"] for k, v in fitter.timer.summary().items()}
-    log(f"  fit (release FitConfig/SamplerConfig, no silhouette): "
-        f"{sec:.4f} s/image [{card}]")
-    log(f"  stages ms: {json.dumps(stages)} [{card}]")
-    log(f"  iterations per phase: {json.dumps(out['iters'])}")
-    log(f"  nn_grouped launches in the timed fit: {launches}")
-    tensors = [*out["smpl_params"].values(), *out["obj_params"].values(),
-               out["obj_R"], out["scale"],
-               *[v for pc in out["pclouds"].values() for v in pc.values()
-                 if torch.is_floating_point(v)]]
-    if not all(bool(torch.isfinite(v).all()) for v in tensors):
-        raise SystemExit("fit: non-finite output")
-    if launches <= 0:
-        raise SystemExit("fit: the main path never launched nn_grouped")
-    return {"sec": sec, "stages_ms": stages, "iters": out["iters"],
-            "launches": launches}
+    result = {}
+    for label, kw, need in (
+            ("sil", {}, ("nn_grouped", "coverage_fwd", "coverage_bwd")),
+            ("no_sil", {"use_silhouette": False}, ("nn_grouped",))):
+        out, sec, counts, stages = run(1, **kw)
+        steps = {k: FitConfig().steps_per_iter * v
+                 for k, v in out["iters"].items()}
+        log(f"  fit {label} (release FitConfig/SamplerConfig): {sec:.4f} "
+            f"s/image [{card}]")
+        log(f"  stages ms: {json.dumps(stages)} [{card}]")
+        log(f"  iterations per phase: {json.dumps(out['iters'])}")
+        per_step = {k: stages[f"phase_{k}"] / n for k, n in steps.items()
+                    if n}
+        log(f"  ms per step by phase: "
+            f"{json.dumps({k: round(v, 3) for k, v in per_step.items()})}")
+        log(f"  kernel launches in this fit: {json.dumps(counts)}")
+        for name in need:
+            if counts[name] <= 0:
+                raise SystemExit(f"fit {label}: the path never launched "
+                                 f"{name}")
+        if label == "no_sil" and (counts["coverage_fwd"]
+                                  or counts["coverage_bwd"]):
+            raise SystemExit("fit no_sil: coverage kernels launched")
+        result[label] = {"sec": sec, "stages_ms": stages,
+                         "ms_per_step": per_step, "iters": out["iters"],
+                         "launches": counts}
+    return result
 
 
 # --------------------------------------------------------------------- #
 # optional phase: where the fit's time goes (torch.profiler)
 def run_profile(torch, dev, card, out_dir):
-    """A release-width fit with cut iteration budgets under torch.profiler:
-    device busy share, and the kernels and host ops that take the time."""
+    """A release-width fit at its defaults (the silhouette phase on) with
+    cut iteration budgets under torch.profiler: device busy share, and the
+    kernels and host ops that take the time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -364,12 +535,12 @@ def run_profile(torch, dev, card, out_dir):
     from chore_tpu_torch.recon.generator import SamplerConfig
 
     fitter = make_fitter(dev, FieldConfig(),
-                         FitConfig(iter_kpts_max=8, iter_obj=4,
+                         FitConfig(iter_kpts_max=8, iter_obj=4, iter_sil=10,
                                    iter_joint_max=8), SamplerConfig())
     frame = synthetic_frame(512)
     run = lambda: fitter.fit_batch(  # noqa: E731
         *frame, generator=torch.Generator(device=dev).manual_seed(1),
-        use_silhouette=False, block_per_stage=True)
+        block_per_stage=True)
     run()
     torch.cuda.synchronize()
     fitter.timer.reset()
@@ -396,9 +567,10 @@ def run_profile(torch, dev, card, out_dir):
         f"{busy_us / 1e6:.3f} s = {100 * busy_us / 1e6 / wall:.1f}% "
         f"[{card}]")
     log(f"  profile stages ms: {json.dumps(stages)}")
+    obj_steps = steps["obj"] + steps["sil"] + steps["joint"]
     log(f"  profile ms per step: smpl "
         f"{stages['optimize_smpl'] / (steps['global'] + steps['pose_kpts']):.3f}"
-        f", object {stages['optimize_object'] / (steps['obj'] + steps['joint']):.3f}")
+        f", object (obj+sil+joint) {stages['optimize_object'] / obj_steps:.3f}")
     top_dev = sorted(kernels, key=dev_us, reverse=True)[:12]
     log(f"  top kernels ({len(kernels)} distinct, "
         f"{sum(e.count for e in kernels)} launches; ms / launches):")
@@ -464,12 +636,25 @@ def main(argv=None):
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  nvcc[{name}] {line.strip()}")
 
-    kernels = {"nn_grouped": {
-        "name": "nn_grouped", "route": "cuda",
-        "source": "chore_tpu_torch/csrc/nn_grouped.cu",
-        "replaces": "chore_tpu/ops/pallas/nn.py:45",
-        "launches": None, "max_abs_err": None, "ms": None, "plain_ms": None,
-        "bound_ms": None, "bound_by": None, "library_ms": None}}
+    from chore_tpu_torch.ops import silhouette as sil_mod
+
+    blank = {"route": "cuda", "launches": None, "max_abs_err": None,
+             "ms": None, "plain_ms": None, "bound_ms": None,
+             "bound_by": None, "library_ms": None}
+    kernels = {
+        "nn_grouped": {**blank, "name": "nn_grouped",
+                       "source": "chore_tpu_torch/csrc/nn_grouped.cu",
+                       "replaces": "chore_tpu/ops/pallas/nn.py:45"},
+        "coverage_fwd": {**blank, "name": "coverage_fwd",
+                         "source": "chore_tpu_torch/csrc/silhouette.cu",
+                         "replaces": "chore_tpu/ops/pallas/silhouette.py:108"},
+        "coverage_bwd": {**blank, "name": "coverage_bwd",
+                         "source": "chore_tpu_torch/csrc/silhouette.cu",
+                         "replaces": "chore_tpu/ops/pallas/silhouette.py:143"},
+    }
+    counters = {"nn_grouped": (nn_mod.launches, "nn_grouped"),
+                "coverage_fwd": (sil_mod.launches, "coverage_fwd"),
+                "coverage_bwd": (sil_mod.launches, "coverage_bwd")}
 
     if "kernels" in phases:
         log("phase kernels:")
@@ -479,6 +664,14 @@ def main(argv=None):
         log(f"  nn_grouped one joint step (3 launches): kernel "
             f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
             f"{k['bound_ms']:.5f} ms ({k['bound_by']}) [{card}]")
+        err_f, err_b = check_coverage(torch, dev)
+        kernels["coverage_fwd"]["max_abs_err"] = err_f
+        kernels["coverage_bwd"]["max_abs_err"] = err_b
+        for name, row in time_coverage(torch, dev).items():
+            kernels[name].update(row)
+            log(f"  {name} one launch at the main shape: kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.6f} ms ({row['bound_by']}) [{card}]")
 
     if "field" in phases:
         log("phase field:")
@@ -486,8 +679,9 @@ def main(argv=None):
 
     if "fit" in phases:
         log("phase fit:")
-        fit = run_fit(torch, dev, card, nn_mod)
-        kernels["nn_grouped"]["launches"] = fit["launches"]
+        fit = run_fit(torch, dev, card, counters)
+        for name in kernels:  # the main path: the default fit, sil on
+            kernels[name]["launches"] = fit["sil"]["launches"][name]
 
     if "profile" in phases:
         log("phase profile:")

@@ -22,7 +22,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # kernel name -> source file under csrc/
-SOURCES = {"nn_grouped": "nn_grouped.cu"}
+SOURCES = {"nn_grouped": "nn_grouped.cu", "silhouette": "silhouette.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -9,13 +9,14 @@ with the phase schedule kept exactly:
              trans, lr .006; j2d switches on and the decay becomes it/3 at
              the kpts boundary without resetting Adam)
   object: 'object only' x20 (R, t, s; lr .006)
+          -> 'sil' x50 (R, t, s; silhouette + trans/scale regs; lr .006,
+             no early stop; kernels K2/K3 render every step)
           -> 'joint' x<=110 (t, s only; +contact +collision; lr .002,
              early stop, decay (it+1)/5 continuing the global schedule)
 
-This slice runs the no-silhouette schedule (``use_silhouette=False``); the
-50-iteration 'sil' phase between 'object only' and 'joint' is not ported
-yet and asking for it raises. ``chore_tpu``'s ``fused_pipeline`` (one XLA
-program per fit, a TPU dispatch workaround) has no counterpart here.
+``fit_batch(use_silhouette=False)`` skips the 'sil' phase. ``chore_tpu``'s
+``fused_pipeline`` (one XLA program per fit, a TPU dispatch workaround) has
+no counterpart here.
 """
 from __future__ import annotations
 
@@ -34,6 +35,11 @@ from chore_tpu_torch.ops.rotation import (
 from chore_tpu_torch.recon import losses as L
 from chore_tpu_torch.recon.generator import Generator, SamplerConfig
 from chore_tpu_torch.recon.optimize import PhaseSpec, freeze_all_except, run_phase
+from chore_tpu_torch.recon.silhouette import (
+    SilhouetteLossROI,
+    offscreen_loss,
+    silhouette_loss,
+)
 from chore_tpu_torch.smpl.assets import load_part_labels
 from chore_tpu_torch.smpl.model import SMPLH, init_params, pack_pose
 from chore_tpu_torch.smpl.priors import make_body_prior, make_hand_prior
@@ -49,6 +55,7 @@ class FitConfig:
     iter_kpts: int = 1  # extends the kpts budget
     iter_kpts_max: int = 150
     iter_obj: int = 20
+    iter_sil: int = 50
     iter_joint: int = 10  # extends the joint budget
     iter_joint_max: int = 100
     steps_per_iter: int = 10
@@ -57,10 +64,19 @@ class FitConfig:
     z0: float = Z0
     obj_scale: float = 1.0
     contact_thresh: float = 0.08
+    sil_rend_size: int = 256
     crop_size: int = 1200
     # 1e-4 uniform jitter on the optimized rotation before each SVD
     # projection; off for deterministic parity tests
     svd_jitter: bool = True
+    # opt-in coarse-to-fine sigma annealing in the sil phase: sigma starts
+    # widened by this factor and narrows geometrically to 1x over
+    # `sil_anneal_levels` stages (1.0 = off, the reference schedule)
+    sil_sigma_anneal: float = 1.0
+    sil_anneal_levels: int = 4
+    # opt-in offscreen guard in the sil phase: a hinge that keeps a badly
+    # initialized object from minimizing the mask L2 by leaving the ROI
+    offscreen_guard: bool = False
 
 
 class ReconFitter:
@@ -92,6 +108,10 @@ class ReconFitter:
         tv = tv - tv.mean(0)  # centre the template
         self.template_verts = tv
         self.template_faces = np.asarray(template_faces, np.int32)
+        # the sil phase renders the template mesh itself
+        self.mesh_verts = torch.as_tensor(tv, device=dev)
+        self.mesh_faces = torch.as_tensor(self.template_faces,
+                                          dtype=torch.int64, device=dev)
         self.pca_init = torch.as_tensor(pca_axes(tv), device=dev)
         self.obj_points = torch.as_tensor(
             sample_surface(tv, self.template_faces, cfg.obj_samples),
@@ -120,10 +140,12 @@ class ReconFitter:
 
     def _run(self, loss_fn, params, spec, generator, prev_loss, traces,
              iters, name):
-        """run_phase, keeping the iteration count and, when record_traces,
-        the per-step trace."""
-        out = run_phase(loss_fn, params, spec, generator, prev_loss=prev_loss,
-                        record=self.record_traces)
+        """run_phase under the timer phase ``phase_<name>`` (every step
+        reads its loss back, so this is the phase's wall time), keeping the
+        iteration count and, when record_traces, the per-step trace."""
+        with self.timer.phase(f"phase_{name}"):
+            out = run_phase(loss_fn, params, spec, generator,
+                            prev_loss=prev_loss, record=self.record_traces)
         if self.record_traces:
             traces[name] = out[3]
         iters[name] = out[2]
@@ -205,15 +227,28 @@ class ReconFitter:
              + obj_params["obj_t"][:, None])
         return v * obj_params["obj_s"][:, None, None]
 
+    def _sil_sigma(self, it):
+        """Coverage sigma of sil-phase iteration ``it``: None (half a pixel)
+        unless annealing, else level min(it*L // iter_sil, L-1) of
+        base * anneal^(1 - k/(L-1)), ending at the release sigma."""
+        cfg = self.cfg
+        nl = cfg.sil_anneal_levels
+        if not (cfg.sil_sigma_anneal > 1.0 and nl > 1):
+            return None
+        level = min(it * nl // max(cfg.iter_sil, 1), nl - 1)
+        base = 0.5 * (2.0 / cfg.sil_rend_size)
+        return base * cfg.sil_sigma_anneal ** (1.0 - level / (nl - 1))
+
     @torch.no_grad()
     def fit_object(self, feats, tmpx, crop_center, smpl_params,
                    obj_center_rel, obj_pca_pred, human_t, scale,
-                   generator=None, use_sil=False):
+                   generator=None, sil_data=None):
         """Object init from the network's predictions, then the object
-        phases. Returns (obj_params, traces, iters)."""
-        if use_sil:
-            raise NotImplementedError("silhouette phase: slice 2")
+        phases; the 'sil' phase runs when ``sil_data`` (the tensors of a
+        ``SilhouetteLossROI``) is given. Returns (obj_params, traces,
+        iters)."""
         cfg = self.cfg
+        use_sil = sil_data is not None
         B = human_t.shape[0]
         obj_params = {
             "obj_R": init_object_orientation(
@@ -228,11 +263,24 @@ class ReconFitter:
         preds_h = self._query(feats, tmpx, smpl_verts, crop_center)
         smpl_center_pred = preds_h["centers"][..., :3].mean(dim=1)
 
-        def obj_losses(op, phase, decay, g):
+        def obj_losses(op, phase, decay, g, trans_init=None, it=0):
+            """``it`` is the phase-local iteration (the sil anneal level)."""
             ld = {}
             # one SO(3) projection per step shared by every term
             R = (project_so3_jittered(op["obj_R"], g) if cfg.svd_jitter
                  else project_so3(op["obj_R"]))
+            if phase == "sil":
+                ld["mask"], _ = silhouette_loss(
+                    sil_data, self.mesh_verts, self.mesh_faces, R,
+                    op["obj_t"], op["obj_s"], cfg.sil_rend_size,
+                    sigma=self._sil_sigma(it))
+                ld["scale"] = L.scale_loss(op["obj_s"], cfg.obj_scale)
+                ld["trans"] = ((op["obj_t"] - trans_init) ** 2).mean()
+                if cfg.offscreen_guard:
+                    ld["offscreen"] = offscreen_loss(
+                        sil_data, self.mesh_verts, R, op["obj_t"],
+                        op["obj_s"])
+                return L.weighted_sum(ld, self.weights, decay), ld
             obj = self.transform_obj(op, R=R)
             preds_o = self._query(feats, tmpx, obj, crop_center)
             ld["object"] = L.df_o_loss(preds_o["df"][..., 1])
@@ -258,10 +306,23 @@ class ReconFitter:
             lambda p, it, g: obj_losses(p, "obj", 1.0, g), obj_params, spec,
             generator, 300.0, traces, iters, "obj")
 
+        if use_sil:
+            # 'sil': decay it+1 (local it), no early stop; the trans anchor
+            # is taken after the object-only phase moved obj_t
+            trans_init = obj_params["obj_t"].clone()
+            spec = PhaseSpec(lr=0.006, n_iters=cfg.iter_sil,
+                             steps_per_iter=cfg.steps_per_iter)
+            obj_params, prev = self._run(
+                lambda p, it, g: obj_losses(p, "sil", it + 1.0, g,
+                                            trans_init, it=it),
+                obj_params, spec, generator, prev, traces, iters, "sil")
+
         # 'joint': the reference's stop gate counts global iterations and
-        # the phase starts at global iter_obj, so the local gate is
-        # 0.25*max_iter - iter_obj; decay continues (global_it - iter_obj + 1)/5
-        start, off = cfg.iter_obj, 1.0
+        # the phase starts at global iter_obj [+ iter_sil], so the local
+        # gate is 0.25*max_iter - start; decay continues
+        # (global_it - iter_obj + 1)/5
+        start = cfg.iter_obj + (cfg.iter_sil if use_sil else 0)
+        off = (cfg.iter_sil if use_sil else 0.0) + 1.0
         spec = PhaseSpec(lr=0.002, n_iters=cfg.iter_joint_max + cfg.iter_joint,
                          steps_per_iter=cfg.steps_per_iter,
                          trainable=freeze_all_except(obj_params, "obj_t",
@@ -287,7 +348,9 @@ class ReconFitter:
           kpts2d: (B, 25, 3) openpose keypoints in net-input pixels + conf.
           generator: torch.Generator on the fitter's device for every
             random draw (point generation, SVD jitter); seed 0 if None.
-          use_silhouette: the 'sil' phase is not ported yet: True raises.
+          use_silhouette: run the 'sil' phase (default); its ROI prep
+            reads the host copies of mask channels 3 (person) and 4
+            (object).
           block_per_stage: synchronize the card after each stage, so
             ``timer.summary()`` holds true per-stage wall times.
           draws: optional injected point-generation draws (tests).
@@ -295,8 +358,6 @@ class ReconFitter:
         Returns dict with smpl params, object params, obj_R, the generated
         point clouds, the scale init, and the iterations run per phase.
         """
-        if use_silhouette:
-            raise NotImplementedError("silhouette phase: slice 2")
         dev = self.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -308,6 +369,14 @@ class ReconFitter:
         f32 = lambda a: torch.as_tensor(  # noqa: E731
             np.asarray(a, np.float32) if not torch.is_tensor(a) else a,
             dtype=torch.float32, device=dev)
+
+        def host(a):
+            return (a.detach().cpu().numpy() if torch.is_tensor(a)
+                    else np.asarray(a, np.float32))
+
+        # host copies for the silhouette ROI prep
+        images_np = host(images) if use_silhouette else None
+        crop_center_np = host(crop_center)
         crop_center = f32(crop_center)
         with self.timer.phase("encode"):
             feats, tmpx = self.generator.encode(f32(images))
@@ -324,11 +393,22 @@ class ReconFitter:
                 feats, tmpx, crop_center, f32(mocap_poses), f32(mocap_betas),
                 human_t, f32(kpts2d), generator)
             sync()
+        sil_data = None
+        if use_silhouette:
+            with self.timer.phase("silhouette_prep"):
+                sil_data = SilhouetteLossROI(
+                    images_np[..., 3], images_np[..., 4],
+                    self.template_verts, self.template_faces,
+                    crop_center_np,
+                    rend_size=self.cfg.sil_rend_size,
+                    crop_size=self.cfg.crop_size,
+                    net_input=self.cfg.net_in_size,
+                ).tensors(dev)
         with self.timer.phase("optimize_object"):
             obj_params, obj_trace, obj_iters = self.fit_object(
                 feats, tmpx, crop_center, smpl_params,
                 pc["object"]["centers"][:, 3:], pc["object"]["pca_axis"],
-                human_t, scale, generator)
+                human_t, scale, generator, sil_data)
             sync()
         out = {
             "smpl_params": smpl_params,

@@ -5,8 +5,9 @@ there is no card. This file imports no JAX (the card's machine has none;
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-The seeded cases are shared with ``test_torch_port_nn.py``, which holds the
-plain version to the TPU kernel on the CPU.
+The 1-NN cases are shared with ``test_torch_port_nn.py``, and
+``test_torch_port_silhouette.py`` holds the coverage kernels' plain versions
+to the TPU kernels on the CPU.
 """
 import numpy as np
 import pytest
@@ -70,3 +71,111 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
     assert tnn.launches["nn_grouped"] == before + 1
     assert torch.equal(ik, ip)
     torch.testing.assert_close(dk, dp, atol=1e-5, rtol=0)
+
+
+# --------------------------------------------------------------------- #
+# K2/K3: the soft-silhouette coverage kernels
+def coverage_case(name, dev):
+    """(e (B, 3, 8, F), g (B, P), S, inv_sigma) on ``dev``: an octasphere
+    template in front of a unit camera; the named variation on it."""
+    from chore_tpu_torch.ops.rasterizer import project_unit_k
+    from chore_tpu_torch.ops.silhouette import edge_coeffs
+    from chore_tpu_torch.utils.meshio import octasphere
+
+    S, widen, B, subdiv, shift = 64, 1.0, 1, 2, (0.0, 0.0, 0.0)
+    if name == "size_100":
+        S = 100
+    elif name == "sigma_x4":
+        widen = 4.0
+    elif name == "batch2":
+        B = 2
+    elif name == "faces_2048":
+        subdiv = 4
+    elif name == "offscreen":
+        shift = (5.0, 0.0, 0.0)
+    tv, tf = octasphere(radius=0.3, center=(0.05, -0.02, 1.2), subdiv=subdiv)
+    K = torch.tensor([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]])
+    verts = torch.as_tensor(tv)[None].repeat(B, 1, 1)
+    if B == 2:
+        verts[1] += torch.tensor([0.1, 0.05, 0.3])
+    ndc = project_unit_k(verts, K.expand(B, 3, 3)) + torch.tensor(shift)
+    if name == "degenerate_behind_camera":
+        ndc[0, 0, 2] = -1.0
+        ndc[0, 1] = ndc[0, 2]
+    faces = torch.as_tensor(tf, dtype=torch.int64)
+    if name == "no_faces":
+        faces = faces[:0]
+    sigma = widen * 0.5 * (2.0 / S)
+    e = edge_coeffs(ndc, faces, sigma)
+    g = torch.from_numpy(
+        np.random.RandomState(1).randn(B, S * S).astype(np.float32))
+    if name == "sparse_g":
+        g[:, : S * S // 2] = 0.0
+    elif name == "zero_g":
+        g.zero_()
+    return e.contiguous().to(dev), g.to(dev), S, 1.0 / sigma
+
+
+COVERAGE_CASES = ["octasphere", "faces_2048", "degenerate_behind_camera",
+                  "no_faces", "size_100", "sigma_x4", "batch2", "offscreen",
+                  "sparse_g", "zero_g"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", COVERAGE_CASES)
+def test_coverage_kernels_match_plain_on_card(cuda_device, name):
+    """K2 against ``coverage_sums_plain`` to 1e-5 of max(1, the sum) (f32
+    sums over up to thousands of faces in another order); K3 against
+    ``coverage_sums_bwd_plain`` to 1e-5 of the largest gradient (the d_e
+    evaluation is rounded op by op in both, so the routing is the same);
+    two K3 calls bitwise equal; one launch counted per call."""
+    from chore_tpu_torch.ops import silhouette as tsil
+
+    e, g, S, inv = coverage_case(name, cuda_device)
+    before = dict(tsil.launches)
+    cov = tsil.coverage_sums_cuda(e, S, inv)
+    de = tsil.coverage_sums_bwd_cuda(e, g, S, inv)
+    de2 = tsil.coverage_sums_bwd_cuda(e, g, S, inv)
+    cov_p = tsil.coverage_sums_plain(e, S, inv)
+    de_p = tsil.coverage_sums_bwd_plain(e, g, S, inv)
+    torch.cuda.synchronize()
+    assert tsil.launches["coverage_fwd"] == before["coverage_fwd"] + 1
+    n_bwd = 0 if e.shape[-1] == 0 else 2
+    assert tsil.launches["coverage_bwd"] == before["coverage_bwd"] + n_bwd
+    assert torch.equal(de, de2)
+    torch.testing.assert_close(cov, cov_p, atol=1e-5, rtol=1e-5)
+    if name == "no_faces":
+        assert de.shape[-1] == 0 and float(cov.abs().max()) == 0.0
+        return
+    scale = max(float(de_p.abs().max()), 1e-30)
+    torch.testing.assert_close(de, de_p, atol=1e-5 * scale, rtol=0)
+    if name == "offscreen":
+        assert float(cov.abs().max()) == 0.0
+    if name in ("offscreen", "zero_g"):
+        assert float(de.abs().max()) == 0.0
+    else:
+        assert float(cov.max()) > 0.5 and float(de.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_soft_silhouette_autograd_on_card(cuda_device):
+    """The autograd Function launches K2 forward and K3 backward; the
+    vertex gradient agrees with the CPU's plain route."""
+    from chore_tpu_torch.ops import silhouette as tsil
+    from chore_tpu_torch.ops.rasterizer import project_unit_k, soft_silhouette
+    from chore_tpu_torch.utils.meshio import octasphere
+
+    tv, tf = octasphere(radius=0.3, center=(0.05, -0.02, 1.2), subdiv=2)
+    K = torch.tensor([[[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]]])
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        v = torch.as_tensor(tv)[None].to(dev).requires_grad_(True)
+        sil = soft_silhouette(project_unit_k(v, K.to(dev)),
+                              torch.as_tensor(tf, device=dev), image_size=64)
+        before = dict(tsil.launches)
+        ((sil - 0.5) ** 2).sum().backward()
+        grads.append(v.grad.cpu())
+        if dev.type == "cuda":
+            assert tsil.launches["coverage_bwd"] == before["coverage_bwd"] + 1
+    scale = float(grads[1].abs().max())
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-4 * scale, rtol=0)

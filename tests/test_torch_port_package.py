@@ -1,7 +1,8 @@
-"""Package-level contracts of ``chore_tpu_torch``: it imports neither JAX
-nor the JAX package, its assets are byte copies of ``chore_tpu``'s, its
-entry points refuse to drop silently to the CPU, and the unported
-silhouette phase raises."""
+"""Package-level contracts of ``chore_tpu_torch``: it imports neither JAX,
+the JAX package nor cv2, its assets are byte copies of ``chore_tpu``'s, its
+entry points refuse to drop silently to the CPU, and ``fit_batch`` at its
+defaults runs the silhouette phase, neutralized on a frame with no object
+mask."""
 import filecmp
 import os
 import subprocess
@@ -29,13 +30,14 @@ def _port_modules():
 
 def test_imports_no_jax_or_reference():
     """Importing every module of the port, in a fresh interpreter, leaves
-    jax, flax, optax and chore_tpu out of sys.modules."""
+    jax, flax, optax, chore_tpu and cv2 (absent on the card's machine) out
+    of sys.modules."""
     mods = _port_modules()
-    assert "chore_tpu_torch.ops.nn" in mods and len(mods) > 15
+    assert "chore_tpu_torch.recon.silhouette" in mods and len(mods) > 15
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'chore_tpu'))\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'chore_tpu', 'cv2'))\n"
             "print(repr(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -70,27 +72,51 @@ def test_full_f32_settings():
     assert torch.get_float32_matmul_precision() == "highest"
 
 
-def test_silhouette_phase_not_ported():
+def test_silhouette_phase_not_ported(monkeypatch):
+    """The silhouette phase is ported: ``fit_batch`` at its defaults runs
+    'sil' for its full budget; on a frame with no object mask the ROI prep
+    neutralizes it, so every sil-phase mask loss is exactly 0 (the other
+    phases' budgets and the render size are cut to keep this fast)."""
+    import chore_tpu_torch.recon.fitter as tfit
     from chore_tpu_torch.models.chore import FieldConfig, build_field
-    from chore_tpu_torch.recon.fitter import FitConfig, ReconFitter
+    from chore_tpu_torch.recon.generator import SamplerConfig
     from chore_tpu_torch.smpl import SMPLH, synthetic_smplh
     from chore_tpu_torch.utils.meshio import octasphere
 
+    masks = []
+
+    def recording(*args, **kw):
+        out = tfit_loss(*args, **kw)
+        masks.append(float(out[0].detach()))
+        return out
+
+    tfit_loss = tfit.silhouette_loss
+    monkeypatch.setattr(tfit, "silhouette_loss", recording)
     tv, tf = octasphere(radius=0.18, subdiv=1)
-    fitter = ReconFitter(build_field(FieldConfig(num_stack=1), device="cpu"),
-                         SMPLH(synthetic_smplh(), device="cpu"), tv, tf,
-                         cfg=FitConfig(obj_samples=64), device="cpu")
+    cfg = tfit.FitConfig(obj_samples=64, iter_kpts_max=1, iter_obj=1,
+                         iter_joint_max=1, steps_per_iter=2, net_in_size=64,
+                         sil_rend_size=64)
+    fitter = tfit.ReconFitter(
+        build_field(FieldConfig(num_stack=1), device="cpu"),
+        SMPLH(synthetic_smplh(), device="cpu"), tv, tf, cfg=cfg,
+        sampler_cfg=SamplerConfig(num_steps=1, sample_num=256, num_rounds=2,
+                                  num_points=64), device="cpu")
     z = np.zeros((1, 64, 64, 5), np.float32)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        fitter.fit_batch(z, np.zeros((1, 2)), np.zeros((1, 72)),
-                         np.zeros((1, 10)), np.zeros((1, 25, 3)))
+    out = fitter.fit_batch(z, np.zeros((1, 2)), np.zeros((1, 72)),
+                           np.zeros((1, 10)), np.zeros((1, 25, 3)))
+    assert out["iters"]["sil"] == cfg.iter_sil == 50
+    assert len(masks) == cfg.iter_sil * cfg.steps_per_iter
+    assert masks == [0.0] * len(masks)
+    assert "silhouette_prep" in fitter.timer.summary()
 
 
 def test_kernel_sources_and_build_dir():
-    """Every kernel source exists; the build goes under _build/, which git
-    ignores."""
+    """Every kernel source exists (K1, and K2/K3 in one file); the build
+    goes under _build/, which git ignores."""
     from chore_tpu_torch.ops import cuda_build
 
+    assert cuda_build.SOURCES == {"nn_grouped": "nn_grouped.cu",
+                                  "silhouette": "silhouette.cu"}
     for src in cuda_build.SOURCES.values():
         assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR, src))
     assert cuda_build.BUILD_DIR == os.path.join(PKG, "_build")

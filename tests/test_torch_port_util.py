@@ -65,6 +65,120 @@ def jax_fit_draws(key, batch_size, cfg):
             "object": jax_sampler_draws(ko, batch_size, cfg)}
 
 
+def run_both_fits(fit_kw, samp_kw, frame, use_silhouette):
+    """``fit_batch`` of ``chore_tpu`` and of the port (CPU, traces
+    recorded) on the same frame, weights, SMPL-H arrays and point-generation
+    draws. Both add the same fixed 1e-3 matrix before every SO(3)
+    projection: with ``svd_jitter=False`` an exact rotation makes the SVD
+    backward 0/0 and every object step is skipped as non-finite; the fixed
+    matrix is the deterministic stand-in for the production jitter."""
+    import chore_tpu.ops.rotation as jrot
+    import chore_tpu.recon.fitter as jfit
+    import chore_tpu_torch.ops.rotation as trot
+    import chore_tpu_torch.recon.fitter as tfit
+    from chore_tpu.recon.generator import SamplerConfig as JSamp
+    from chore_tpu.smpl import SMPLH as JSMPLH
+    from chore_tpu.smpl import synthetic_smplh
+    from chore_tpu.utils.meshio import octasphere
+    from chore_tpu_torch.recon.generator import SamplerConfig as TSamp
+    from chore_tpu_torch.smpl import SMPLH as TSMPLH
+
+    model, params = jax_field()
+    arrays = synthetic_smplh()
+    tv, tf = octasphere(radius=0.18, subdiv=1)
+    key = jax.random.PRNGKey(0)
+    jitter = (1e-3 * np.random.RandomState(5).rand(3, 3)).astype(np.float32)
+
+    j_proj = jrot.project_so3
+    t_proj = trot.project_so3
+    jrot.project_so3 = jfit.project_so3 = lambda m: j_proj(m + jitter)
+    jit_t = torch.from_numpy(jitter)
+    trot.project_so3 = tfit.project_so3 = lambda m: t_proj(m + jit_t)
+    try:
+        fj = jfit.ReconFitter(model, params, JSMPLH(arrays), tv, tf,
+                              cfg=jfit.FitConfig(**fit_kw),
+                              sampler_cfg=JSamp(**samp_kw),
+                              record_traces=True)
+        out_j = fj.fit_batch(*frame, key=key, use_silhouette=use_silhouette)
+        ft = tfit.ReconFitter(torch_field(params), TSMPLH(arrays, device="cpu"),
+                              tv, tf, cfg=tfit.FitConfig(**fit_kw),
+                              sampler_cfg=TSamp(**samp_kw), record_traces=True,
+                              device="cpu")
+        out_t = ft.fit_batch(*frame, use_silhouette=use_silhouette,
+                             draws=jax_fit_draws(key, 1, JSamp(**samp_kw)))
+    finally:
+        jrot.project_so3 = jfit.project_so3 = j_proj
+        trot.project_so3 = tfit.project_so3 = t_proj
+    return out_j, out_t
+
+
+def stacked_trace(traces, names):
+    """(loss, live) of the named phases' per-step traces, concatenated."""
+    loss = np.concatenate([np.asarray(traces[k]["loss"]).ravel()
+                           for k in names])
+    live = np.concatenate([np.asarray(traces[k]["live"]).ravel()
+                           for k in names])
+    return loss, live
+
+
+def assert_traces_match(traces_j, traces_t, names, moved=False):
+    """Per-step weighted loss of the named phases: equal live masks
+    (the same early-stop decisions) and relative 1e-3 -- f32 noise
+    compounding over a few dozen Adam steps, where a structural mismatch
+    (a wrong decay, anchor, sigma level, a reset optimizer, a missing term)
+    moves the trace by percent within a step or two. ``moved``: the loss
+    must also change along the live steps."""
+    lj, vj = stacked_trace(traces_j, names)
+    lt, vt = stacked_trace(traces_t, names)
+    np.testing.assert_array_equal(vj, vt)
+    rel = np.abs(lj - lt) / np.maximum(np.abs(lj), 1e-6)
+    assert rel.max() < 1e-3, f"max rel {rel.max():.3e} at {rel.argmax()}"
+    if moved:
+        assert np.ptp(lj[vj]) > 0
+
+
+def sil_fit_case(options=None):
+    """Both packages' ``fit_batch(use_silhouette=True)`` at a cut budget
+    (2 'sil' iterations of 3 steps, 64^2 render) on a 64^2 frame whose
+    channel 3 is a person box and channel 4 an object disk, so the ROI is a
+    real crop; ``options`` are extra FitConfig fields."""
+    S = 64
+    fit = dict(iter_betas=1, iter_pose=1, iter_kpts=1, iter_kpts_max=2,
+               iter_obj=2, iter_sil=2, iter_joint=1, iter_joint_max=4,
+               steps_per_iter=3, obj_samples=128, net_in_size=S,
+               sil_rend_size=64, svd_jitter=False, **(options or {}))
+    samp = dict(num_steps=2, sample_num=256, num_rounds=2, num_points=128)
+    rng = np.random.RandomState(0)
+    images = rng.rand(1, S, S, 5).astype(np.float32)
+    yy, xx = np.mgrid[:S, :S]
+    images[0, ..., 3] = (np.abs(xx - 30) < 12) & (np.abs(yy - 36) < 20)
+    images[0, ..., 4] = (xx - 36.4) ** 2 + (yy - 31.2) ** 2 < 11.3 ** 2
+    cc = np.array([[1018.0, 779.0]], np.float32)
+    pose = (rng.randn(1, 72) * 0.05).astype(np.float32)
+    betas = (0.1 * rng.randn(1, 10)).astype(np.float32)
+    kpts = np.concatenate(
+        [(S * rng.rand(1, 25, 2)).astype(np.float32),
+         (0.3 + 0.7 * rng.rand(1, 25, 1)).astype(np.float32)], -1)
+    return run_both_fits(fit, samp, (images, cc, pose, betas, kpts),
+                         use_silhouette=True)
+
+
+def assert_final_params_match(out_j, out_t):
+    """Final SMPL and object parameters, 1e-3 absolute (the trace noise
+    carried into the parameters)."""
+    for k, v in out_j["smpl_params"].items():
+        np.testing.assert_allclose(n(out_t["smpl_params"][k]), np.asarray(v),
+                                   atol=1e-3, err_msg=k)
+    for k, v in out_j["obj_params"].items():
+        np.testing.assert_allclose(n(out_t["obj_params"][k]), np.asarray(v),
+                                   atol=1e-3, err_msg=k)
+    np.testing.assert_allclose(n(out_t["obj_R"]), np.asarray(out_j["obj_R"]),
+                               atol=1e-3)
+    np.testing.assert_allclose(n(out_t["scale"]), np.asarray(out_j["scale"]),
+                               atol=1e-4)
+    assert all(np.isfinite(n(v)).all() for v in out_t["obj_params"].values())
+
+
 def assert_clouds_match(oj, ot, atol=1e-4):
     """A generated cloud of ``chore_tpu`` (oj) and of the port (ot) agree:
     the same valid mask; centres, axes and the survivors (which come first,
