@@ -9,16 +9,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. card name and power limit, torch/CUDA versions; build every kernel
      (one nvcc per source, all at once).
   2. kernels: each hand-written kernel against its plain PyTorch version
-     on the card, at the main path's shapes and on edge cases, then timed
-     beside its plain version and its bound.
+     on the card, at the main path's shapes and on edge cases (each called
+     twice: bitwise equal, one launch counted per call), then timed beside
+     its plain version and its bound: per call (events around back-to-back
+     Python calls, dispatch included) and on the device (100 calls captured
+     in a CUDA graph, its replay timed). K2/K3 are timed at 128, 512,
+     1,000, 2,048, 2,500 and 8,192 faces.
   3. field: the release-width CHORE field (f32, seeded random weights):
      encode 1x512^2x5, then query 50k points.
   4. fit: a small fit on the card against the CPU, both schedules; then
-     ``ReconFitter.fit_batch()`` at its defaults (the silhouette phase on)
-     and once with ``use_silhouette=False``, release FitConfig/SamplerConfig,
-     on a synthetic frame whose masks are a person box and an object disk;
-     one warm-up, then timed runs with per-stage times; every kernel of each
-     path must have launched in that path's run.
+     ``ReconFitter.fit_batch()`` at its defaults (the silhouette phase on),
+     once with ``use_silhouette=False``, and at its defaults with a
+     2,048-face template, release FitConfig/SamplerConfig, on a synthetic
+     frame whose masks are a person box and an object disk; one warm-up,
+     then timed runs with per-stage times; every kernel of each path must
+     have launched in that path's run.
   5. the kernel table as one JSON line, then the result line.
 
 Needs a CUDA device; exits non-zero without one.
@@ -66,7 +71,9 @@ def card_line():
 
 
 def cuda_ms(fn, reps):
-    """Mean device ms of ``fn()`` over ``reps`` back-to-back calls."""
+    """Per-call ms of ``fn()``: events around ``reps`` back-to-back calls.
+    For a kernel of a few us this is the host's rate of dispatch (checks,
+    allocation, the ctypes call), not the kernel."""
     import torch
 
     fn()
@@ -79,6 +86,34 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, count=100, reps=5):
+    """Device ms per call of ``fn()``: ``count`` calls captured into one
+    CUDA graph, its replay timed with events and divided by the count, so
+    no host dispatch is inside the window. The inputs stay in L2 between
+    calls, as they do in the fit."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(count):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * count)
 
 
 # --------------------------------------------------------------------- #
@@ -176,6 +211,7 @@ def time_nn(torch, dev):
         return lambda: [fn(x, y, qg, rg) for _, x, y, qg, rg in main]
 
     ms = cuda_ms(run(nn_sqdist_cuda), 50)
+    dev_ms = device_ms(run(nn_sqdist_cuda))
     plain_ms = cuda_ms(run(nn_sqdist_plain), 20)
     flops = nbytes = 0.0
     for _, x, y, qg, rg in main:
@@ -184,22 +220,30 @@ def time_nn(torch, dev):
         flops += 8.0 * pairs  # 3 FMA dot (6) + 2 add/sub, per pair
         nbytes += 4.0 * B * (3 * N + 3 * M + N + M + N + N)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def coverage_case(torch, dev, S=256, subdiv=2, focal=4.6, widen=1.0, B=1,
-                  shift=(0.0, 0.0), bad=False, g_kind="loss"):
+                  shift=(0.0, 0.0), bad=False, g_kind="loss", drop=0,
+                  huge=False, faces=None):
     """(e, g, S, inv_sigma) of a K2/K3 case. The defaults are the main
     path's shape: the 128-face template fills ~75% of the 256^2 ROI as the
     sil phase renders it (the ROI is the object-mask bbox grown by 30%),
     and g is the gradient of the sil loss (keep * clip(raw) - ref)^2
-    against a shifted disk."""
+    against a shifted disk. ``drop`` leaves out the template's last faces;
+    ``faces`` keeps that many, spread evenly over the template (sizes
+    between the octasphere's); ``huge`` adds one face whose box covers the
+    whole ROI and whose edges cross it."""
     from chore_tpu_torch.ops.rasterizer import _Clip01, project_unit_k
     from chore_tpu_torch.ops.silhouette import coverage_sums_plain, edge_coeffs
     from chore_tpu_torch.utils.meshio import octasphere
 
     tv, tf = octasphere(radius=0.18, center=(0.0, 0.0, 2.2), subdiv=subdiv)
+    tf = tf[:len(tf) - drop]
+    if faces is not None:
+        tf = tf[np.linspace(0, len(tf) - 1, faces).round().astype(np.int64)]
     verts = torch.as_tensor(tv)[None].repeat(B, 1, 1)
     for b in range(1, B):
         verts[b] += torch.tensor([0.02 * b, -0.01 * b, 0.1 * b])
@@ -210,6 +254,12 @@ def coverage_case(torch, dev, S=256, subdiv=2, focal=4.6, widen=1.0, B=1,
     if bad:  # a vertex behind the camera and a degenerate face
         ndc[0, 0, 2] = -1.0
         ndc[0, 1] = ndc[0, 2]
+    if huge:
+        big = torch.tensor([[-1.5, -1.2, 2.2], [1.4, -0.9, 2.2],
+                            [0.1, 1.3, 2.2]])
+        ndc = torch.cat([ndc, big.expand(B, 3, 3)], 1)
+        n = len(tv)
+        tf = np.concatenate([tf, [[n, n + 1, n + 2]]])
     sigma = widen * 0.5 * (2.0 / S)
     e = edge_coeffs(ndc.to(dev), torch.as_tensor(tf, device=dev),
                     sigma).contiguous()
@@ -245,33 +295,46 @@ def coverage_cases():
         ("size_100", dict(S=100)),
         ("sigma_x4", dict(widen=4.0)),
         ("batch2", dict(B=2)),
+        ("huge_face", dict(huge=True)),
+        ("faces_odd", dict(drop=3)),
+        ("faces_2048_batch2", dict(subdiv=4, B=2)),
+        # K2 in clusters of two tiles: F % 4 = 3 in one stage, F % 4 = 1 in
+        # three chunks, and an odd count of tile columns (7 at S = 100)
+        ("faces_2047", dict(subdiv=4, faces=2047)),
+        ("faces_2501", dict(subdiv=5, faces=2501)),
+        ("size_100_faces_1000", dict(S=100, subdiv=4, faces=1000)),
     ]
 
 
 def check_coverage(torch, dev):
-    """K2 and K3 against their plain versions in every case; K3 twice,
-    bitwise equal. Returns the worst absolute errors (fwd, bwd)."""
+    """K2 and K3 against their plain versions in every case; each called
+    twice, bitwise equal, one launch counted per call. Returns the worst
+    absolute errors (fwd, bwd)."""
     from chore_tpu_torch.ops import silhouette as tsil
 
     worst_f = worst_b = 0.0
     for name, kw in coverage_cases():
         e, g, S, inv = coverage_case(torch, dev, **kw)
+        before = dict(tsil.launches)
         cov = tsil.coverage_sums_cuda(e, S, inv)
+        cov2 = tsil.coverage_sums_cuda(e, S, inv)
         de = tsil.coverage_sums_bwd_cuda(e, g, S, inv)
         de2 = tsil.coverage_sums_bwd_cuda(e, g, S, inv)
+        counted = {k: tsil.launches[k] - before[k] for k in before}
         cov_p = tsil.coverage_sums_plain(e, S, inv)
         de_p = tsil.coverage_sums_bwd_plain(e, g, S, inv)
         torch.cuda.synchronize()
         err_f = (cov - cov_p).abs().max().item()
         err_b = (de - de_p).abs().max().item()
         scale = de_p.abs().max().item()
-        repeat = bool(torch.equal(de, de2))
+        repeat = bool(torch.equal(de, de2)) and bool(torch.equal(cov, cov2))
         log(f"  coverage {name}: B={e.shape[0]} F={e.shape[-1]} S={S} "
             f"max cov {cov_p.max().item():.4g}, max|cov-plain|={err_f:.3g}; "
             f"max|de| {scale:.4g}, max|de-plain|={err_b:.3g}; "
-            f"bwd bitwise repeat={repeat}")
+            f"fwd and bwd bitwise repeat={repeat}; launches {counted}")
         ok = (err_f <= COV_REL_TOL * max(1.0, cov_p.abs().max().item())
-              and err_b <= COV_GRAD_REL_TOL * max(scale, 1e-30) and repeat)
+              and err_b <= COV_GRAD_REL_TOL * max(scale, 1e-30) and repeat
+              and counted == {"coverage_fwd": 2, "coverage_bwd": 2})
         if name == "offscreen":  # everything culled: exact zeros
             ok &= cov.abs().max().item() == 0.0 and de.abs().max().item() == 0.0
         elif name == "zero_g":
@@ -284,36 +347,64 @@ def check_coverage(torch, dev):
     return worst_f, worst_b
 
 
-def time_coverage(torch, dev):
-    """K2 and K3 at the main path's shape, each beside its plain version
-    and its bound; the bound counts the (pixel, face) pairs this input
-    leaves live: dmin > -16 for K2, and with g != 0 for K3."""
+def live_pairs(e, g, S, inv):
+    """(pixel, face) pairs this input leaves live: dmin > -16 (K2's work),
+    and of those the pairs with g != 0 (K3's), counted in face tiles."""
     from chore_tpu_torch.ops import silhouette as tsil
 
-    e, g, S, inv = coverage_case(torch, dev)
-    B, F, P = e.shape[0], e.shape[-1], S * S
-    pix = tsil.pixel_coords(S, inv, dev)
-    d, t = tsil._tile_terms(e, pix, slice(0, F))
-    live = tsil._dmin(d, t)[2] > -tsil.COVERAGE_CUTOFF  # (B, P, F)
-    pairs_f = float(live.sum().item())
-    pairs_b = float((live & (g[:, :, None] != 0)).sum().item())
-    out = {}
-    # ~30 f32 ops per live pair forward (3 edges x 4, 4 box, 7 mins, the
-    # cutoff, sigmoid ~4, the sum), ~45 backward (+ ds, routing, 3 sums);
-    # bytes: e and the output (and g) once each
-    for name, fn, plain, ops, nbytes in (
-            ("coverage_fwd", lambda: tsil.coverage_sums_cuda(e, S, inv),
-             lambda: tsil.coverage_sums_plain(e, S, inv), 30.0 * pairs_f,
-             4.0 * (B * 24 * F + B * P)),
-            ("coverage_bwd", lambda: tsil.coverage_sums_bwd_cuda(e, g, S, inv),
-             lambda: tsil.coverage_sums_bwd_plain(e, g, S, inv),
-             45.0 * pairs_b, 4.0 * (2 * B * 24 * F + B * P))):
-        t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        out[name] = {"ms": cuda_ms(fn, 200), "plain_ms": cuda_ms(plain, 20),
-                     "bound_ms": max(t_ops, t_bytes),
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-    log(f"  coverage main shape: B={B} S={S} F={F}; live pairs fwd "
-        f"{pairs_f:.0f} / bwd {pairs_b:.0f} of {B * P * F}")
+    pix = tsil.pixel_coords(S, inv, e.device)
+    fwd = bwd = 0
+    for f0 in range(0, e.shape[-1], tsil.FACE_TILE):
+        d, t = tsil._tile_terms(e, pix, slice(f0, f0 + tsil.FACE_TILE))
+        live = tsil._dmin(d, t)[2] > -tsil.COVERAGE_CUTOFF  # (B, P, tile)
+        fwd += int(live.sum().item())
+        bwd += int((live & (g[:, :, None] != 0)).sum().item())
+    return float(fwd), float(bwd)
+
+
+# the timed K2/K3 shapes, (octasphere subdivision, faces kept): 128 faces
+# (the main path's template), 512, 1,000 and 2,500 (BEHAVE's f1000 and
+# f2500 templates; even subsets of the 2,048- and 8,192-face spheres),
+# 2,048 (f2000's class) and 8,192
+COVERAGE_TIMED = ((2, None), (3, None), (4, 1000), (4, None), (5, 2500),
+                  (5, None))
+
+
+def time_coverage(torch, dev, card):
+    """K2 and K3 at S = 256 and each timed template size: per-call and
+    device time beside the plain version and the bound, counted per shape.
+    Returns {kernel: {F: row}}."""
+    from chore_tpu_torch.ops import silhouette as tsil
+
+    out = {"coverage_fwd": {}, "coverage_bwd": {}}
+    for subdiv, faces in COVERAGE_TIMED:
+        e, g, S, inv = coverage_case(torch, dev, subdiv=subdiv, faces=faces)
+        B, F, P = e.shape[0], e.shape[-1], S * S
+        pairs_f, pairs_b = live_pairs(e, g, S, inv)
+        log(f"  coverage timed shape: B={B} S={S} F={F}; live pairs fwd "
+            f"{pairs_f:.0f} / bwd {pairs_b:.0f} of {B * P * F}")
+        # ~30 f32 ops per live pair forward (3 edges x 4, 4 box, 7 mins, the
+        # cutoff, sigmoid ~4, the sum), ~45 backward (+ ds, routing, 3
+        # sums); bytes: e and the output (and g) once each
+        for name, fn, plain, ops, nbytes in (
+                ("coverage_fwd", lambda: tsil.coverage_sums_cuda(e, S, inv),
+                 lambda: tsil.coverage_sums_plain(e, S, inv), 30.0 * pairs_f,
+                 4.0 * (B * 24 * F + B * P)),
+                ("coverage_bwd",
+                 lambda: tsil.coverage_sums_bwd_cuda(e, g, S, inv),
+                 lambda: tsil.coverage_sums_bwd_plain(e, g, S, inv),
+                 45.0 * pairs_b, 4.0 * (2 * B * 24 * F + B * P))):
+            t_ops = ops / PEAK_F32_FLOPS * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            row = {"ms": cuda_ms(fn, 200), "device_ms": device_ms(fn),
+                   "plain_ms": cuda_ms(plain, 20 if F <= 512 else 3),
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            out[name][F] = row
+            log(f"  {name} F={F}: device {row['device_ms']:.5f} ms, per "
+                f"call {row['ms']:.5f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}) "
+                f"[{card}]")
     return out
 
 
@@ -407,17 +498,24 @@ def synthetic_frame(size):
     return images, cc, pose, betas, kpts
 
 
-def make_fitter(dev, field_cfg, fit_cfg, samp_cfg, record=False):
+def make_fitter(dev, field_cfg, fit_cfg, samp_cfg, record=False, subdiv=2,
+                base=None):
+    """A fitter with an ``octasphere(0.18, subdiv)`` template (subdiv 2:
+    128 faces; 4: 2,048); ``base``, a fitter whose field and SMPL-H it
+    shares."""
     from chore_tpu_torch.models.chore import build_field
     from chore_tpu_torch.recon.fitter import ReconFitter
     from chore_tpu_torch.smpl import SMPLH, synthetic_smplh
     from chore_tpu_torch.utils.meshio import octasphere
 
-    tv, tf = octasphere(radius=0.18, subdiv=2)
-    return ReconFitter(build_field(field_cfg, device=dev, seed=0),
-                       SMPLH(synthetic_smplh(), device=dev), tv, tf,
-                       cfg=fit_cfg, sampler_cfg=samp_cfg,
-                       record_traces=record, device=dev)
+    tv, tf = octasphere(radius=0.18, subdiv=subdiv)
+    if base is None:
+        model = build_field(field_cfg, device=dev, seed=0)
+        smplh = SMPLH(synthetic_smplh(), device=dev)
+    else:
+        model, smplh = base.model, base.smplh
+    return ReconFitter(model, smplh, tv, tf, cfg=fit_cfg,
+                       sampler_cfg=samp_cfg, record_traces=record, device=dev)
 
 
 def check_small_fit(torch, dev):
@@ -459,9 +557,10 @@ def check_small_fit(torch, dev):
 
 
 def run_fit(torch, dev, card, counters):
-    """The release fit at its defaults (the silhouette phase on), then once
-    without it. ``counters``: {kernel name: (launch dict, key)}; every
-    count is zeroed just before a timed fit and read just after."""
+    """The release fit at its defaults (the silhouette phase on), once
+    without it, and at its defaults with a 2,048-face template.
+    ``counters``: {kernel name: (launch dict, key)}; every count is zeroed
+    just before a timed fit and read just after."""
     from chore_tpu_torch.models.chore import FieldConfig
     from chore_tpu_torch.recon.fitter import FitConfig
     from chore_tpu_torch.recon.generator import SamplerConfig
@@ -470,18 +569,17 @@ def run_fit(torch, dev, card, counters):
     fitter = make_fitter(dev, FieldConfig(), FitConfig(), SamplerConfig())
     frame = synthetic_frame(512)
 
-    def run(seed, **kw):
+    def run(seed, f=fitter, **kw):
         g = torch.Generator(device=dev).manual_seed(seed)
         for d, k in counters.values():
             d[k] = 0
-        fitter.timer.reset()
+        f.timer.reset()
         t0 = time.perf_counter()
-        out = fitter.fit_batch(*frame, generator=g, block_per_stage=True,
-                               **kw)
+        out = f.fit_batch(*frame, generator=g, block_per_stage=True, **kw)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         counts = {name: d[k] for name, (d, k) in counters.items()}
-        stages = {k: v["mean_ms"] for k, v in fitter.timer.summary().items()}
+        stages = {k: v["mean_ms"] for k, v in f.timer.summary().items()}
         tensors = [*out["smpl_params"].values(), *out["obj_params"].values(),
                    out["obj_R"], out["scale"],
                    *[v for pc in out["pclouds"].values() for v in pc.values()
@@ -492,10 +590,16 @@ def run_fit(torch, dev, card, counters):
 
     _, warm_s, _, _ = run(0)
     log(f"  fit warm-up: {warm_s:.3f} s")
+    # the default fit again with a 2,048-face template, the size class of
+    # BEHAVE's f2000/f2500 object templates
+    fitter_2048 = make_fitter(dev, FieldConfig(), FitConfig(),
+                              SamplerConfig(), subdiv=4, base=fitter)
     result = {}
+    everything = ("nn_grouped", "coverage_fwd", "coverage_bwd")
     for label, kw, need in (
-            ("sil", {}, ("nn_grouped", "coverage_fwd", "coverage_bwd")),
-            ("no_sil", {"use_silhouette": False}, ("nn_grouped",))):
+            ("sil", {}, everything),
+            ("no_sil", {"use_silhouette": False}, ("nn_grouped",)),
+            ("sil_2048_faces", {"f": fitter_2048}, everything)):
         out, sec, counts, stages = run(1, **kw)
         steps = {k: FitConfig().steps_per_iter * v
                  for k, v in out["iters"].items()}
@@ -639,7 +743,7 @@ def main(argv=None):
     from chore_tpu_torch.ops import silhouette as sil_mod
 
     blank = {"route": "cuda", "launches": None, "max_abs_err": None,
-             "ms": None, "plain_ms": None, "bound_ms": None,
+             "ms": None, "device_ms": None, "plain_ms": None, "bound_ms": None,
              "bound_by": None, "library_ms": None}
     kernels = {
         "nn_grouped": {**blank, "name": "nn_grouped",
@@ -661,17 +765,17 @@ def main(argv=None):
         kernels["nn_grouped"]["max_abs_err"] = check_nn(torch, dev)
         kernels["nn_grouped"].update(time_nn(torch, dev))
         k = kernels["nn_grouped"]
-        log(f"  nn_grouped one joint step (3 launches): kernel "
-            f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
-            f"{k['bound_ms']:.5f} ms ({k['bound_by']}) [{card}]")
+        log(f"  nn_grouped one joint step (3 launches): device "
+            f"{k['device_ms']:.5f} ms, per call {k['ms']:.4f} ms, plain "
+            f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
+            f"({k['bound_by']}) [{card}]")
         err_f, err_b = check_coverage(torch, dev)
         kernels["coverage_fwd"]["max_abs_err"] = err_f
         kernels["coverage_bwd"]["max_abs_err"] = err_b
-        for name, row in time_coverage(torch, dev).items():
-            kernels[name].update(row)
-            log(f"  {name} one launch at the main shape: kernel "
-                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-                f"{row['bound_ms']:.6f} ms ({row['bound_by']}) [{card}]")
+        shapes = time_coverage(torch, dev, card)
+        for name, rows in shapes.items():
+            kernels[name].update(rows[min(rows)])  # the main path's 128
+        log(json.dumps({"coverage_shapes": shapes, "card": card}))
 
     if "field" in phases:
         log("phase field:")

@@ -180,11 +180,9 @@ def _lib():
         lib.coverage_fwd_launch.argtypes = [ptr, ptr, i32, i32, i32,
                                             ctypes.c_double, ptr]
         lib.coverage_fwd_launch.restype = i32
-        lib.coverage_bwd_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
-                                            i32, ctypes.c_double, ptr]
+        lib.coverage_bwd_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32,
+                                            ctypes.c_double, ptr]
         lib.coverage_bwd_launch.restype = i32
-        lib.coverage_bwd_scratch_floats.argtypes = [i32, i32, i32]
-        lib.coverage_bwd_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -198,9 +196,11 @@ def _check(name, t, shape):
 
 def coverage_sums_cuda(e, image_size, inv_sigma):
     """Launch K2 on the current stream. Same contract as
-    ``coverage_sums_plain``."""
+    ``coverage_sums_plain``; bitwise repeatable."""
     B, F = e.shape[0], e.shape[-1]
     _check("coverage_fwd: e", e, (B, 3, 8, F))
+    if e.data_ptr() % 16:  # the kernel stages e with 16-byte bulk copies
+        e = e.clone()
     out = torch.empty((B, image_size * image_size), dtype=torch.float32,
                       device=e.device)
     lib = _lib()
@@ -216,8 +216,9 @@ def coverage_sums_cuda(e, image_size, inv_sigma):
 
 
 def coverage_sums_bwd_cuda(e, g, image_size, inv_sigma):
-    """Launch K3 (two passes, no atomics) on the current stream. Same
-    contract as ``coverage_sums_bwd_plain``; bitwise repeatable."""
+    """Launch K3 (one kernel, no scratch, no atomics) on the current
+    stream. Same contract as ``coverage_sums_bwd_plain``; bitwise
+    repeatable."""
     B, F = e.shape[0], e.shape[-1]
     _check("coverage_bwd: e", e, (B, 3, 8, F))
     _check("coverage_bwd: g", g, (B, image_size * image_size))
@@ -227,14 +228,11 @@ def coverage_sums_bwd_cuda(e, g, image_size, inv_sigma):
     if F == 0 or B == 0:
         return de
     lib = _lib()
-    scratch = torch.empty(
-        (lib.coverage_bwd_scratch_floats(B, F, image_size),),
-        dtype=torch.float32, device=e.device)
     with torch.cuda.device(e.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.coverage_bwd_launch(
-            e.data_ptr(), g.data_ptr(), scratch.data_ptr(), de.data_ptr(),
-            B, F, image_size, float(inv_sigma), stream)
+        err = lib.coverage_bwd_launch(e.data_ptr(), g.data_ptr(),
+                                      de.data_ptr(), B, F, image_size,
+                                      float(inv_sigma), stream)
     if err != 0:
         raise RuntimeError(f"coverage_bwd kernel launch failed: CUDA error "
                            f"{err}")

@@ -91,6 +91,14 @@ def coverage_case(name, dev):
         B = 2
     elif name == "faces_2048":
         subdiv = 4
+    elif name == "faces_2048_batch2":
+        subdiv, B = 4, 2
+    elif name == "faces_2047":
+        subdiv = 4
+    elif name == "faces_2501":
+        subdiv = 5
+    elif name == "size_100_faces_1000":
+        S, subdiv = 100, 4
     elif name == "offscreen":
         shift = (5.0, 0.0, 0.0)
     tv, tf = octasphere(radius=0.3, center=(0.05, -0.02, 1.2), subdiv=subdiv)
@@ -105,6 +113,18 @@ def coverage_case(name, dev):
     faces = torch.as_tensor(tf, dtype=torch.int64)
     if name == "no_faces":
         faces = faces[:0]
+    elif name == "faces_odd":  # F = 125: rows not 16-byte aligned
+        faces = faces[:125]
+    elif name in ("faces_2047", "faces_2501", "size_100_faces_1000"):
+        # K2 in clusters of two tiles: F % 4 = 3 in one stage, F % 4 = 1 in
+        # three chunks, and an odd count of tile columns (7 at S = 100)
+        faces = faces[:int(name.split("_")[-1])]
+    elif name == "huge_face":  # its grown box covers the whole image
+        big = torch.tensor([[-1.5, -1.2, 1.2], [1.4, -0.9, 1.2],
+                            [0.1, 1.3, 1.2]])
+        n = ndc.shape[1]
+        ndc = torch.cat([ndc, big.expand(B, 3, 3)], 1)
+        faces = torch.cat([faces, torch.tensor([[n, n + 1, n + 2]])])
     sigma = widen * 0.5 * (2.0 / S)
     e = edge_coeffs(ndc, faces, sigma)
     g = torch.from_numpy(
@@ -118,7 +138,9 @@ def coverage_case(name, dev):
 
 COVERAGE_CASES = ["octasphere", "faces_2048", "degenerate_behind_camera",
                   "no_faces", "size_100", "sigma_x4", "batch2", "offscreen",
-                  "sparse_g", "zero_g"]
+                  "sparse_g", "zero_g", "huge_face", "faces_odd",
+                  "faces_2048_batch2", "faces_2047", "faces_2501",
+                  "size_100_faces_1000"]
 
 
 @pytest.mark.cuda
@@ -128,21 +150,23 @@ def test_coverage_kernels_match_plain_on_card(cuda_device, name):
     sums over up to thousands of faces in another order); K3 against
     ``coverage_sums_bwd_plain`` to 1e-5 of the largest gradient (the d_e
     evaluation is rounded op by op in both, so the routing is the same);
-    two K3 calls bitwise equal; one launch counted per call."""
+    two calls of each bitwise equal; one launch counted per call."""
     from chore_tpu_torch.ops import silhouette as tsil
 
     e, g, S, inv = coverage_case(name, cuda_device)
     before = dict(tsil.launches)
     cov = tsil.coverage_sums_cuda(e, S, inv)
+    cov2 = tsil.coverage_sums_cuda(e, S, inv)
     de = tsil.coverage_sums_bwd_cuda(e, g, S, inv)
     de2 = tsil.coverage_sums_bwd_cuda(e, g, S, inv)
     cov_p = tsil.coverage_sums_plain(e, S, inv)
     de_p = tsil.coverage_sums_bwd_plain(e, g, S, inv)
     torch.cuda.synchronize()
-    assert tsil.launches["coverage_fwd"] == before["coverage_fwd"] + 1
+    assert tsil.launches["coverage_fwd"] == before["coverage_fwd"] + 2
     n_bwd = 0 if e.shape[-1] == 0 else 2
     assert tsil.launches["coverage_bwd"] == before["coverage_bwd"] + n_bwd
     assert torch.equal(de, de2)
+    assert torch.equal(cov, cov2)
     torch.testing.assert_close(cov, cov_p, atol=1e-5, rtol=1e-5)
     if name == "no_faces":
         assert de.shape[-1] == 0 and float(cov.abs().max()) == 0.0
@@ -179,3 +203,25 @@ def test_soft_silhouette_autograd_on_card(cuda_device):
             assert tsil.launches["coverage_bwd"] == before["coverage_bwd"] + 1
     scale = float(grads[1].abs().max())
     torch.testing.assert_close(grads[0], grads[1], atol=1e-4 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+def test_coverage_bwd_is_one_kernel_per_call(cuda_device):
+    """100 K3 calls under torch.profiler run exactly 100 kernels on the
+    card: one launch per call, no second pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chore_tpu_torch.ops import silhouette as tsil
+
+    e, g, S, inv = coverage_case("octasphere", cuda_device)
+    tsil.coverage_sums_bwd_cuda(e, g, S, inv)  # build and load first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(100):
+            tsil.coverage_sums_bwd_cuda(e, g, S, inv)
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+    assert sum(ev.count for ev in kernels) == 100, [
+        (ev.key, ev.count) for ev in kernels]
