@@ -13,8 +13,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      twice: bitwise equal, one launch counted per call), then timed beside
      its plain version and its bound: per call (events around back-to-back
      Python calls, dispatch included) and on the device (100 calls captured
-     in a CUDA graph, its replay timed). K2/K3 are timed at 128, 512,
-     1,000, 2,048, 2,500 and 8,192 faces.
+     in a CUDA graph, its replay timed). K1 is checked and timed at the
+     fit's joint step (its three problems in one multi call, and each
+     alone), the evaluation Chamfer (10,000 x 10,000, both directions) and
+     the preprocessing's label transfer (53,125 x 6,890); K2/K3 at 128,
+     512, 1,000, 2,048, 2,500 and 8,192 faces.
   3. field: the release-width CHORE field (f32, seeded random weights):
      encode 1x512^2x5, then query 50k points.
   4. fit: a small fit on the card against the CPU, both schedules; then
@@ -23,7 +26,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      2,048-face template, release FitConfig/SamplerConfig, on a synthetic
      frame whose masks are a person box and an object disk; one warm-up,
      then timed runs with per-stage times; every kernel of each path must
-     have launched in that path's run.
+     have launched in that path's run, K1 once per joint step.
   5. the kernel table as one JSON line, then the result line.
 
 Needs a CUDA device; exits non-zero without one.
@@ -119,7 +122,8 @@ def device_ms(fn, count=100, reps=5):
 # --------------------------------------------------------------------- #
 # phase 2: kernels against their plain versions
 def nn_cases(torch, dev):
-    """(name, x, y, qg, rg) cases: the main path's shapes first."""
+    """(name, x, y, qg, rg) cases: the main path's shapes first, then the
+    shapes of the kernel's other users and edge cases."""
     from chore_tpu_torch.ops.nn import group_rows
 
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -142,10 +146,19 @@ def nn_cases(torch, dev):
         cases.append((name, x.contiguous(), y.contiguous(), qg, rg))
 
     # main path: contact h->o and o->h (14 part groups, partial masks),
-    # collision o->h ungrouped (recon/losses.py contact_loss/collision)
+    # collision o->h ungrouped over the same clouds as contact o->h
+    # (recon/losses.py contact_nn_calls/collision_nn_call)
     add("contact_h2o", h, o, mo, gh, go)
     add("contact_o2h", o, h, mh, go, gh)
     add("collision_o2h", o, h)
+    # the other users' shapes (chore_tpu/recon/evaluate.py:73 and
+    # ops/chamfer.py:105-106: the evaluation Chamfer, both directions;
+    # chore_tpu/preprocess/boundary_sampler.py:80,92: nearest-SMPL-vertex
+    # labels for the sigma = 0.02 samples)
+    p, r = cloud(1, 10000), cloud(1, 10000, 0.25)
+    add("eval_p2r", p, r)
+    add("eval_r2p", r, p)
+    add("label_transfer", cloud(1, 53125, 0.35), h)
     # edge cases
     x, y = cloud(1, 300), cloud(1, 200)
     yg = labels(1, 200, 3)
@@ -156,73 +169,179 @@ def nn_cases(torch, dev):
     ydup = torch.cat([y[:, :50], y[:, :50], y[:, 50:]], 1)  # exact dups
     add("duplicates", x, ydup)
     add("ragged_sizes", cloud(1, 1037), cloud(1, 1029))
+    # queries on references, each present three times in the cloud: raw
+    # distances at or just below 0 clamp to 0 and the lowest index wins
+    yc = cloud(1, 2000)
+    add("coincident", torch.cat([yc[:, 500:900], cloud(1, 300)], 1),
+        torch.cat([yc, yc[:, 500:900], yc[:, 500:900]], 1))
     add("batch2", cloud(2, 700), cloud(2, 2100), None, labels(2, 700, 5),
         labels(2, 2100, 5))
     return cases
 
 
-def check_nn(torch, dev):
-    from chore_tpu_torch.ops.nn import BIG, nn_sqdist_cuda, nn_sqdist_plain
+# the timed K1 shapes: name -> the cases of one call (several cases: one
+# multi call where the module has one, else a call per case)
+NN_TIMED = {
+    "joint_step": ("contact_h2o", "contact_o2h", "collision_o2h"),
+    "contact_h2o": ("contact_h2o",),
+    "contact_o2h": ("contact_o2h",),
+    "collision_o2h": ("collision_o2h",),
+    "eval_chamfer_10k": ("eval_p2r", "eval_r2p"),
+    "label_transfer_53k": ("label_transfer",),
+    "batch2": ("batch2",),
+}
 
-    worst = 0.0
-    for name, x, y, qg, rg in nn_cases(torch, dev):
-        d_k, i_k = nn_sqdist_cuda(x, y, qg, rg)
-        d_p, i_p = nn_sqdist_plain(x, y, qg, rg)
-        torch.cuda.synchronize()
-        err = (d_k - d_p).abs().max().item()
-        # second-best distance: an index may differ only where the best
-        # two are within the tolerance of each other
-        xx = (x * x).sum(-1, keepdim=True)
-        yy = (y * y).sum(-1)[:, None, :]
-        dm = (xx - 2.0 * torch.bmm(x, y.transpose(1, 2)) + yy).clamp_min(0)
+
+def nn_call(torch, nn_mod, problems):
+    """A function making one call of the kernel over ``problems``: the
+    multi entry point where the module has one (one launch), else one
+    single call per problem (a module without it)."""
+    multi = getattr(nn_mod, "nn_multi_cuda", None)
+    if multi is not None:
+        return lambda: multi(problems)
+    return lambda: [nn_mod.nn_sqdist_cuda(*p) for p in problems]
+
+
+def nn_agreement(torch, d, i, problem):
+    """(max |d - plain|, indices differing where the best two distances are
+    more than NN_DIST_TOL apart, whether every unmatched query has the
+    sentinel and index 0, count unmatched) against the plain version."""
+    from chore_tpu_torch.ops.nn import BIG, nn_sqdist_plain
+
+    x, y, qg, rg = problem
+    d_p, i_p = nn_sqdist_plain(*problem)
+    err = (d - d_p).abs().max().item() if d.numel() else 0.0
+    dm = ((x * x).sum(-1, keepdim=True) - 2.0 * torch.bmm(
+        x, y.transpose(1, 2)) + (y * y).sum(-1)[:, None, :]).clamp_min(0)
+    if qg is not None:
         dm = torch.where(qg[:, :, None] == rg[:, None, :], dm,
                          torch.full_like(dm, BIG))
-        k = min(2, dm.shape[-1])
-        top = torch.topk(dm, k, dim=-1, largest=False).values
-        gap = (top[..., 1] - top[..., 0]) if k == 2 else \
-            torch.full_like(top[..., 0], BIG)
-        sure = gap > NN_DIST_TOL
-        bad_idx = int(((i_k != i_p) & sure).sum().item())
-        unmatched = d_p >= 0.5 * BIG
-        sent_ok = bool(((d_k[unmatched] == BIG) & (i_k[unmatched] == 0))
-                       .all().item())
-        log(f"  nn_grouped {name}: B={x.shape[0]} N={x.shape[1]} "
+    if dm.shape[-1] >= 2:
+        top = torch.topk(dm, 2, dim=-1, largest=False).values
+        sure = (top[..., 1] - top[..., 0]) > NN_DIST_TOL
+    else:
+        sure = torch.ones_like(d, dtype=torch.bool)
+    del dm
+    bad_idx = int(((i.long() != i_p) & sure).sum().item())
+    unmatched = d_p >= 0.5 * BIG
+    sent_ok = bool(((d[unmatched] == BIG) & (i[unmatched] == 0)).all().item())
+    return err, bad_idx, sent_ok, int(unmatched.sum().item())
+
+
+def check_nn(torch, dev):
+    """K1 against its plain version in every case, each called twice
+    (bitwise equal, one launch counted per call); then, where the module
+    has the multi entry point, each timed multi-problem call (one launch;
+    every answer against its plain version and bitwise equal to its own
+    single call: the joint step's o->h pair shares one scan). Returns the
+    worst distance error."""
+    from chore_tpu_torch.ops import nn as nn_mod
+
+    cases = {c[0]: c[1:] for c in nn_cases(torch, dev)}
+    worst = 0.0
+
+    def verdict(label, d, i, problem):
+        err, bad_idx, sent_ok, unm = nn_agreement(torch, d, i, problem)
+        x, y = problem[:2]
+        log(f"  nn_grouped {label}: B={x.shape[0]} N={x.shape[1]} "
             f"M={y.shape[1]} max|d-plain|={err:.3g} idx_mismatch={bad_idx} "
-            f"unmatched={int(unmatched.sum())} sentinel_ok={sent_ok}")
+            f"unmatched={unm} sentinel_ok={sent_ok}")
         if not (err <= NN_DIST_TOL and bad_idx == 0 and sent_ok):
-            raise SystemExit(f"nn_grouped disagrees with plain on {name}")
-        if name == "duplicates":
+            raise SystemExit(f"nn_grouped disagrees with plain on {label}")
+        return err
+
+    singles = {}
+    for name, problem in cases.items():
+        before = nn_mod.launches["nn_grouped"]
+        d, i = nn_mod.nn_sqdist_cuda(*problem)
+        d2, i2 = nn_mod.nn_sqdist_cuda(*problem)
+        torch.cuda.synchronize()
+        counted = nn_mod.launches["nn_grouped"] - before
+        if not (torch.equal(d, d2) and torch.equal(i, i2)) or counted != 2:
+            raise SystemExit(f"nn_grouped {name}: not bitwise repeatable or "
+                             f"{counted} launches counted for 2 calls")
+        worst = max(worst, verdict(name, d, i, problem))
+        if name == "duplicates" and bool(((i >= 50) & (i < 100)).any()):
             # exact duplicate references: the lowest index must win
-            if bool(((i_k >= 50) & (i_k < 100)).any()):
-                raise SystemExit("nn_grouped: duplicate tie not resolved "
-                                 "to the lowest index")
-        worst = max(worst, err)
+            raise SystemExit("nn_grouped: duplicate tie not resolved to the "
+                             "lowest index")
+        if name == "coincident" and not (
+                torch.equal(i[0, :400], torch.arange(500, 900, device=dev))
+                and float(d[0, :400].max()) <= NN_DIST_TOL):
+            raise SystemExit("nn_grouped: coinciding points not resolved to "
+                             "the lowest index")
+        singles[name] = (d, i)
+    if not hasattr(nn_mod, "nn_multi_cuda"):
+        return worst
+    for shape, names in NN_TIMED.items():
+        if len(names) < 2:
+            continue
+        problems = [cases[n] for n in names]
+        before = nn_mod.launches["nn_grouped"]
+        out = nn_mod.nn_multi_cuda(problems)
+        out2 = nn_mod.nn_multi_cuda(problems)
+        torch.cuda.synchronize()
+        counted = nn_mod.launches["nn_grouped"] - before
+        shared = sum(k[0] == nn_mod.SHARED for k in nn_mod.plan(problems))
+        log(f"  nn_grouped multi {shape}: {len(problems)} problems, "
+            f"{shared} shared scan(s), {counted} launches for 2 calls")
+        if counted != 2:
+            raise SystemExit(f"nn_grouped multi {shape}: {counted} launches")
+        if shape == "joint_step" and shared != 1:
+            raise SystemExit("nn_grouped joint step: the o->h pair does not "
+                             "share one scan")
+        for name, (d, i), (d2, i2) in zip(names, out, out2):
+            if not (torch.equal(d, d2) and torch.equal(i, i2)
+                    and torch.equal(d, singles[name][0])
+                    and torch.equal(i, singles[name][1])):
+                raise SystemExit(f"nn_grouped multi {shape}/{name}: not "
+                                 "bitwise equal to its repeat and its single "
+                                 "call")
+            worst = max(worst, verdict(f"multi {shape}/{name}", d, i,
+                                       cases[name]))
     return worst
 
 
-def time_nn(torch, dev):
-    """Kernel, plain and bound for the three launches of one joint step."""
-    from chore_tpu_torch.ops.nn import nn_sqdist_cuda, nn_sqdist_plain
+def time_nn(torch, dev, card):
+    """K1 at each timed shape: device ms (100 calls in one CUDA graph),
+    per-call ms, the plain version's ms and the bound. Returns {shape:
+    row}."""
+    from chore_tpu_torch.ops import nn as nn_mod
 
-    main = [c for c in nn_cases(torch, dev)
-            if c[0] in ("contact_h2o", "contact_o2h", "collision_o2h")]
-
-    def run(fn):
-        return lambda: [fn(x, y, qg, rg) for _, x, y, qg, rg in main]
-
-    ms = cuda_ms(run(nn_sqdist_cuda), 50)
-    dev_ms = device_ms(run(nn_sqdist_cuda))
-    plain_ms = cuda_ms(run(nn_sqdist_plain), 20)
-    flops = nbytes = 0.0
-    for _, x, y, qg, rg in main:
-        B, N, M = x.shape[0], x.shape[1], y.shape[1]
-        pairs = float((qg[:, :, None] == rg[:, None, :]).sum().item())
-        flops += 8.0 * pairs  # 3 FMA dot (6) + 2 add/sub, per pair
-        nbytes += 4.0 * B * (3 * N + 3 * M + N + M + N + N)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    cases = {c[0]: c[1:] for c in nn_cases(torch, dev)}
+    out = {}
+    for shape, names in NN_TIMED.items():
+        problems = [cases[n] for n in names]
+        call = nn_call(torch, nn_mod, problems)
+        plain = lambda: [nn_mod.nn_sqdist_plain(*p)  # noqa: E731
+                         for p in problems]
+        flops = nbytes = 0.0
+        for x, y, qg, rg in problems:
+            B, N, M = x.shape[0], x.shape[1], y.shape[1]
+            pairs = (float(B * N * M) if qg is None else
+                     float((qg[:, :, None] == rg[:, None, :]).sum().item()))
+            flops += 8.0 * pairs  # 3 FMA dot (6) + 2 add/sub, per pair
+            # x, y, the group rows once each; d (f32) and idx (i64) written
+            nbytes += 4.0 * B * (3 * N + 3 * M) + 12.0 * B * N
+            if qg is not None:
+                nbytes += 4.0 * B * (N + M)
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        big = flops > 1e9
+        before = nn_mod.launches["nn_grouped"]
+        call()
+        row = {"launches_per_call": nn_mod.launches["nn_grouped"] - before,
+               "ms": cuda_ms(call, 10 if big else 50),
+               "device_ms": device_ms(call, count=20 if big else 100),
+               "plain_ms": cuda_ms(plain, 3 if big else 20),
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        out[shape] = row
+        log(f"  nn_grouped {shape} ({row['launches_per_call']} launch(es) "
+            f"per call): device {row['device_ms']:.5f} ms, per call "
+            f"{row['ms']:.5f} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']}) [{card}]")
+    return out
 
 
 def coverage_case(torch, dev, S=256, subdiv=2, focal=4.6, widen=1.0, B=1,
@@ -579,16 +698,23 @@ def run_fit(torch, dev, card, counters):
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         counts = {name: d[k] for name, (d, k) in counters.items()}
-        stages = {k: v["mean_ms"] for k, v in f.timer.summary().items()}
+        summary = f.timer.summary()
+        stages = {k: v["mean_ms"] for k, v in summary.items()}
+        # one K1 launch per joint step: the fitter times each step's 1-NN
+        # call under "joint_nn"
+        joint_steps = summary.get("joint_nn", {}).get("count", 0)
+        if counts["nn_grouped"] != joint_steps:
+            raise SystemExit(f"fit: {counts['nn_grouped']} K1 launches for "
+                             f"{joint_steps} joint steps")
         tensors = [*out["smpl_params"].values(), *out["obj_params"].values(),
                    out["obj_R"], out["scale"],
                    *[v for pc in out["pclouds"].values() for v in pc.values()
                      if torch.is_floating_point(v)]]
         if not all(bool(torch.isfinite(v).all()) for v in tensors):
             raise SystemExit("fit: non-finite output")
-        return out, sec, counts, stages
+        return out, sec, counts, stages, joint_steps
 
-    _, warm_s, _, _ = run(0)
+    warm_s = run(0)[1]
     log(f"  fit warm-up: {warm_s:.3f} s")
     # the default fit again with a 2,048-face template, the size class of
     # BEHAVE's f2000/f2500 object templates
@@ -600,9 +726,13 @@ def run_fit(torch, dev, card, counters):
             ("sil", {}, everything),
             ("no_sil", {"use_silhouette": False}, ("nn_grouped",)),
             ("sil_2048_faces", {"f": fitter_2048}, everything)):
-        out, sec, counts, stages = run(1, **kw)
+        out, sec, counts, stages, joint_steps = run(1, **kw)
+        # steps per phase: iterations x steps_per_iter, an upper bound where
+        # the plateau stop fires inside an iteration; the joint phase's
+        # count is exact
         steps = {k: FitConfig().steps_per_iter * v
                  for k, v in out["iters"].items()}
+        steps["joint"] = joint_steps
         log(f"  fit {label} (release FitConfig/SamplerConfig): {sec:.4f} "
             f"s/image [{card}]")
         log(f"  stages ms: {json.dumps(stages)} [{card}]")
@@ -611,7 +741,8 @@ def run_fit(torch, dev, card, counters):
                     if n}
         log(f"  ms per step by phase: "
             f"{json.dumps({k: round(v, 3) for k, v in per_step.items()})}")
-        log(f"  kernel launches in this fit: {json.dumps(counts)}")
+        log(f"  kernel launches in this fit: {json.dumps(counts)} (joint "
+            f"steps: {joint_steps})")
         for name in need:
             if counts[name] <= 0:
                 raise SystemExit(f"fit {label}: the path never launched "
@@ -621,7 +752,7 @@ def run_fit(torch, dev, card, counters):
             raise SystemExit("fit no_sil: coverage kernels launched")
         result[label] = {"sec": sec, "stages_ms": stages,
                          "ms_per_step": per_step, "iters": out["iters"],
-                         "launches": counts}
+                         "launches": counts, "joint_steps": joint_steps}
     return result
 
 
@@ -763,12 +894,11 @@ def main(argv=None):
     if "kernels" in phases:
         log("phase kernels:")
         kernels["nn_grouped"]["max_abs_err"] = check_nn(torch, dev)
-        kernels["nn_grouped"].update(time_nn(torch, dev))
-        k = kernels["nn_grouped"]
-        log(f"  nn_grouped one joint step (3 launches): device "
-            f"{k['device_ms']:.5f} ms, per call {k['ms']:.4f} ms, plain "
-            f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
-            f"({k['bound_by']}) [{card}]")
+        nn_shapes = time_nn(torch, dev, card)
+        row = dict(nn_shapes["joint_step"])  # the main path's call
+        row.pop("launches_per_call")
+        kernels["nn_grouped"].update(row)
+        log(json.dumps({"nn_shapes": nn_shapes, "card": card}))
         err_f, err_b = check_coverage(torch, dev)
         kernels["coverage_fwd"]["max_abs_err"] = err_f
         kernels["coverage_bwd"]["max_abs_err"] = err_b

@@ -7,13 +7,42 @@ inputs and gives the index; the distance is then re-expressed as
 ``|x - y[idx]|^2`` so autograd yields the exact min-distance gradient with
 respect to both clouds. Queries the kernel found no match for keep the 1e10
 sentinel (zero gradient). ``vmap`` over examples becomes the kernel's batch
-dimension.
+dimension. ``nn_sqdist_multi`` runs several such calls through one kernel
+launch.
 """
 from __future__ import annotations
 
 import torch
 
-from chore_tpu_torch.ops.nn import BIG, group_rows, nn_grouped
+from chore_tpu_torch.ops.nn import BIG, group_rows, nn_grouped_multi
+
+
+def nn_sqdist_multi(calls):
+    """Several ``nn_sqdist`` calls, each a dict of its keyword arguments
+    (x, y, y_mask, x_group, y_group), through one kernel launch on the card
+    (the plain version per call on the CPU). Calls over the same x and y
+    tensors share their detached copies, so the kernel can scan such a
+    grouped and ungrouped pair once. Returns [(sqdist, index)]."""
+    detached = {}
+
+    def prep(t):
+        if id(t) not in detached:
+            detached[id(t)] = t.detach().contiguous()
+        return detached[id(t)]
+
+    problems = []
+    for c in calls:
+        xd, yd = prep(c["x"]), prep(c["y"])
+        problems.append((xd, yd, *group_rows(
+            xd, yd, c.get("y_mask"), c.get("x_group"), c.get("y_group"))))
+    out = []
+    for c, (d_kern, idx) in zip(calls, nn_grouped_multi(problems)):
+        x, y = c["x"], c["y"]
+        y_nn = torch.gather(y, 1, idx[..., None].expand(-1, -1, 3))
+        d = ((x - y_nn) ** 2).sum(-1)
+        d = torch.where(d_kern >= 0.5 * BIG, torch.full_like(d, BIG), d)
+        out.append((d, idx))
+    return out
 
 
 def nn_sqdist(x, y, y_mask=None, x_group=None, y_group=None):
@@ -30,10 +59,5 @@ def nn_sqdist(x, y, y_mask=None, x_group=None, y_group=None):
       (sqdist (B, N), index (B, N) int64); sqdist is the 1e10 sentinel (and
       the index 0) where no valid same-group reference exists.
     """
-    xd, yd = x.detach().contiguous(), y.detach().contiguous()
-    qg, rg = group_rows(xd, yd, y_mask, x_group, y_group)
-    d_kern, idx = nn_grouped(xd, yd, qg, rg)
-    y_nn = torch.gather(y, 1, idx[..., None].expand(-1, -1, 3))
-    d = ((x - y_nn) ** 2).sum(-1)
-    d = torch.where(d_kern >= 0.5 * BIG, torch.full_like(d, BIG), d)
-    return d, idx
+    return nn_sqdist_multi([dict(x=x, y=y, y_mask=y_mask, x_group=x_group,
+                                 y_group=y_group)])[0]

@@ -27,6 +27,7 @@ import torch
 
 from chore_tpu_torch import resolve_device
 from chore_tpu_torch.ops.camera import PerspectiveCamera, Z0
+from chore_tpu_torch.ops.chamfer import nn_sqdist_multi
 from chore_tpu_torch.ops.rotation import (
     init_object_orientation,
     project_so3,
@@ -289,14 +290,23 @@ class ReconFitter:
                 dim=1)
             ld["ocent"] = L.ocent_loss(obj, obj_center_pred)
             if phase == "joint":
-                ld["contact"] = L.contact_loss(
-                    smpl_verts, obj,
-                    df_hum_o=preds_h["df"][..., 1],
-                    df_obj_h=preds_o["df"][..., 0],
-                    part_labels_h=self.part_labels,
-                    part_labels_o=torch.argmax(preds_o["parts"], -1),
-                    thresh=cfg.contact_thresh)
-                ld["collide"] = L.collision_loss(smpl_verts, normals, obj)
+                contact = dict(df_hum_o=preds_h["df"][..., 1],
+                               df_obj_h=preds_o["df"][..., 0],
+                               part_labels_h=self.part_labels,
+                               part_labels_o=torch.argmax(preds_o["parts"],
+                                                          -1),
+                               thresh=cfg.contact_thresh)
+                # contact h->o, o->h and collision o->h: one K1 launch (the
+                # two o->h calls share one scan); the timer's count of
+                # "joint_nn" is the number of joint steps
+                with self.timer.phase("joint_nn"):
+                    nn = nn_sqdist_multi(
+                        L.contact_nn_calls(smpl_verts, obj, **contact)
+                        + [L.collision_nn_call(smpl_verts, obj)])
+                ld["contact"] = L.contact_loss(smpl_verts, obj, **contact,
+                                               nn=nn[:2])
+                ld["collide"] = L.collision_loss(smpl_verts, normals, obj,
+                                                 nn=nn[2])
             return L.weighted_sum(ld, self.weights, decay), ld
 
         traces, iters = {}, {}

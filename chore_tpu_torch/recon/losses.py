@@ -1,9 +1,12 @@
 """Fitting losses for joint SMPL + object optimization.
 
 Counterpart of ``chore_tpu/recon/losses.py``. The contact and collision
-terms reach the grouped 1-NN kernel K1 through ``ops.chamfer.nn_sqdist``
-(kernel on the card, plain version on the CPU), batched over examples by
-the kernel's batch dimension:
+terms reach the grouped 1-NN kernel K1 through ``ops.chamfer.nn_sqdist`` /
+``nn_sqdist_multi`` (kernel on the card, plain version on the CPU), batched
+over examples by the kernel's batch dimension. Called alone, each term
+makes its own kernel launch; the fitter's joint step runs the three 1-NN
+calls of both terms (``contact_nn_calls`` + ``collision_nn_call``) as one
+launch and hands the results in through ``nn=``:
   * contact: per-part chamfer between in-contact SMPL vertices and object
     points (group id = part label), mean over valid part pairs;
   * collision: object points behind the tangent plane of their nearest
@@ -16,7 +19,7 @@ import torch
 
 from chore_tpu_torch.models.layers import one_hot_ce
 from chore_tpu_torch.ops.camera import PerspectiveCamera, Z0
-from chore_tpu_torch.ops.chamfer import nn_sqdist
+from chore_tpu_torch.ops.chamfer import nn_sqdist, nn_sqdist_multi
 from chore_tpu_torch.ops.nn import BIG
 from chore_tpu_torch.smpl.const import SMPL_PARTS_NUM
 
@@ -96,8 +99,33 @@ def ocent_loss(obj_points, obj_center_pred):
     return ((actual - obj_center_pred) ** 2).sum(-1).mean()
 
 
+def _contact_masks(df_hum_o, df_obj_h, thresh):
+    """In-contact points (df < thresh) per side, a side with no contacts
+    at all making all its points eligible; and whether each example has a
+    contact on either side."""
+    mask_h = df_hum_o < thresh
+    mask_o = df_obj_h < thresh
+    any_h = mask_h.any(dim=1, keepdim=True)
+    any_o = mask_o.any(dim=1, keepdim=True)
+    eff_h = mask_h | ~any_h  # fall back to all points
+    eff_o = mask_o | ~any_o
+    return eff_h, eff_o, (any_h | any_o)[:, 0]
+
+
+def contact_nn_calls(smpl_verts, obj_points, df_hum_o, df_obj_h,
+                     part_labels_h, part_labels_o, thresh=0.08):
+    """The contact loss's two grouped 1-NN calls (h->o, then o->h), as
+    ``nn_sqdist`` keyword sets; arguments as for ``contact_loss``."""
+    eff_h, eff_o, _ = _contact_masks(df_hum_o, df_obj_h, thresh)
+    gh = part_labels_h[None].expand(df_hum_o.shape)
+    return [dict(x=smpl_verts, y=obj_points, y_mask=eff_o, x_group=gh,
+                 y_group=part_labels_o),
+            dict(x=obj_points, y=smpl_verts, y_mask=eff_h,
+                 x_group=part_labels_o, y_group=gh)]
+
+
 def contact_loss(smpl_verts, obj_points, df_hum_o, df_obj_h,
-                 part_labels_h, part_labels_o, thresh=0.08):
+                 part_labels_h, part_labels_o, thresh=0.08, nn=None):
     """Per-part contact chamfer.
 
     Args:
@@ -106,29 +134,22 @@ def contact_loss(smpl_verts, obj_points, df_hum_o, df_obj_h,
       df_obj_h: (B, No) predicted HUMAN df at object points.
       part_labels_h: (Nh,) SMPL part labels.
       part_labels_o: (B, No) predicted part labels of object points.
+      nn: optional [(d_h, idx_h), (d_o, idx_o)], ``nn_sqdist_multi`` over
+        ``contact_nn_calls`` of the same arguments; computed here (one
+        kernel launch for both directions) when None.
 
     Points with df < thresh are in contact; a side with no contacts at all
     makes all its points eligible. Each part with points on both sides is a
     cloud pair; the loss is the mean over pairs of the bidirectional mean
-    squared chamfer. Two kernel launches (one per direction) cover all
-    B x 14 part pairs.
+    squared chamfer. The two directions cover all B x 14 part pairs.
     """
-    B, Nh = df_hum_o.shape
     P = SMPL_PARTS_NUM
-    mask_h = df_hum_o < thresh
-    mask_o = df_obj_h < thresh
-    any_h = mask_h.any(dim=1, keepdim=True)
-    any_o = mask_o.any(dim=1, keepdim=True)
-    eff_h = mask_h | ~any_h  # fall back to all points
-    eff_o = mask_o | ~any_o
-    example_on = (any_h | any_o)[:, 0]
-
-    gh = part_labels_h[None].expand(B, Nh)
-    go = part_labels_o
-    d_h, _ = nn_sqdist(smpl_verts, obj_points, y_mask=eff_o, x_group=gh,
-                       y_group=go)
-    d_o, _ = nn_sqdist(obj_points, smpl_verts, y_mask=eff_h, x_group=go,
-                       y_group=gh)
+    eff_h, eff_o, example_on = _contact_masks(df_hum_o, df_obj_h, thresh)
+    if nn is None:
+        nn = nn_sqdist_multi(contact_nn_calls(
+            smpl_verts, obj_points, df_hum_o, df_obj_h, part_labels_h,
+            part_labels_o, thresh))
+    (d_h, _), (d_o, _) = nn
 
     part_ids = torch.arange(P, device=smpl_verts.device)
     hm = eff_h[..., None] & (part_labels_h[None, :, None] == part_ids)
@@ -159,19 +180,27 @@ def vertex_normals(verts, faces):
     return n / (torch.linalg.norm(n, dim=-1, keepdim=True) + 1e-12)
 
 
-def collision_signed(smpl_verts, smpl_normals, obj_points):
+def collision_nn_call(smpl_verts, obj_points):
+    """The collision loss's ungrouped 1-NN call (o->h), as ``nn_sqdist``
+    keywords."""
+    return dict(x=obj_points, y=smpl_verts)
+
+
+def collision_signed(smpl_verts, smpl_normals, obj_points, nn=None):
     """(B, No) signed distance of each object point to the tangent plane of
     its nearest SMPL vertex (negative = inside). The nearest index is not
     differentiated; gradients flow through the object points and the SMPL
-    surface."""
-    _, idx = nn_sqdist(obj_points, smpl_verts)
+    surface. ``nn``: optional precomputed ``nn_sqdist`` result of
+    ``collision_nn_call``."""
+    _, idx = (nn if nn is not None
+              else nn_sqdist(**collision_nn_call(smpl_verts, obj_points)))
     gidx = idx[..., None].expand(-1, -1, 3)
     v_nn = torch.gather(smpl_verts, 1, gidx)
     n_nn = torch.gather(smpl_normals, 1, gidx)
     return ((obj_points - v_nn) * n_nn).sum(-1)
 
 
-def collision_loss(smpl_verts, smpl_normals, obj_points):
+def collision_loss(smpl_verts, smpl_normals, obj_points, nn=None):
     """Penetration penalty: mean s^2 over points inside the body."""
-    signed = collision_signed(smpl_verts, smpl_normals, obj_points)
+    signed = collision_signed(smpl_verts, smpl_normals, obj_points, nn)
     return (signed.clamp(max=0.0) ** 2).mean()

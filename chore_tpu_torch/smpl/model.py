@@ -74,9 +74,11 @@ class SMPLH:
         return self.get_landmarks(params)[0][:, const.BODY25_PELVIS]
 
 
-def init_params(poses, betas, trans, assets_dir=None, device="cpu"):
+def init_params(poses, betas, trans, assets_dir=None, device=None):
     """Split params from (possibly SMPL-72) mocap estimates: 72-dim poses
-    are padded to 156 with the GRAB mean hand pose."""
+    are padded to 156 with the GRAB mean hand pose. The params live on
+    ``device``: the card unless device="cpu"."""
+    device = resolve_device(device)
     f32 = lambda a: torch.as_tensor(  # noqa: E731
         np.asarray(a, np.float32) if not torch.is_tensor(a) else a,
         dtype=torch.float32, device=device)

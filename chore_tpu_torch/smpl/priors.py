@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from chore_tpu_torch import resolve_device
 from chore_tpu_torch.smpl.assets import load_priors
 from chore_tpu_torch.smpl.const import SMPLH_HANDPOSE_START
 
@@ -17,7 +18,10 @@ def _t(a, device):
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
-def make_body_prior(assets_dir=None, device="cpu"):
+def make_body_prior(assets_dir=None, device=None):
+    """The body prior, its tables on ``device``: the card unless
+    ``device="cpu"`` (raises when there is no card and none is named)."""
+    device = resolve_device(device)
     p = load_priors(assets_dir)
     mean, prec = _t(p["body_mean"], device), _t(p["body_precision"], device)
 
@@ -29,7 +33,9 @@ def make_body_prior(assets_dir=None, device="cpu"):
     return body_prior
 
 
-def make_hand_prior(assets_dir=None, device="cpu"):
+def make_hand_prior(assets_dir=None, device=None):
+    """The hand prior, its tables on ``device`` (as ``make_body_prior``)."""
+    device = resolve_device(device)
     p = load_priors(assets_dir)
     mean = _t(np.concatenate([p["lh_mean"], p["rh_mean"]]), device)
     lh_prec = _t(p["lh_precision"], device)

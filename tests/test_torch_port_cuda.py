@@ -14,12 +14,18 @@ import pytest
 import torch
 
 
-def make_case(seed, n_x=700, n_y=450, groups=None, mask=None, dups=False):
+def make_case(seed, n_x=700, n_y=450, groups=None, mask=None, dups=False,
+              coincident=False):
     rng = np.random.RandomState(seed)
     x = rng.randn(n_x, 3).astype(np.float32)
     y = rng.randn(n_y, 3).astype(np.float32)
     if dups:
         y[100:150] = y[:50]  # exact duplicates: lowest index must win
+    if coincident:
+        # queries on references, each twice: raw distances at or just
+        # below 0 all clamp to 0, and the lower index wins
+        y[300:350] = y[200:250]
+        x[:50] = y[200:250]
     xg = yg = ym = None
     if groups:
         xg = rng.randint(0, groups, n_x).astype(np.int32)
@@ -37,7 +43,72 @@ CASES = {
     "duplicates": dict(dups=True),
     "ragged": dict(n_x=13, n_y=7),
     "empty_groups": dict(groups=40, n_y=30),  # many queries unmatched
+    "coincident": dict(coincident=True),
 }
+
+
+def multi_case(name, dev="cpu", scale=1):
+    """([(x, y, qg, rg)] batched torch problems for ``nn_grouped_multi``,
+    and per problem the numpy inputs per example (x, y, y_mask, x_group,
+    y_group)). ``joint_small``: the fit's joint step (contact h->o, o->h in
+    14 part groups with masks, collision o->h ungrouped over the same
+    clouds) at 700 x 300 points, or at the fit's 6,890 x 3,000 with
+    ``scale="full"``; the others: all masked, groups without references,
+    exact duplicates, B = 2."""
+    from chore_tpu_torch.ops.nn import group_rows
+
+    rng = np.random.RandomState(17)
+    B = 2 if name == "batch2" else 1
+    nh, no = (6890, 3000) if scale == "full" else (700, 300)
+
+    def cloud(k, spread=0.3):
+        return (rng.randn(B, k, 3) * spread + [0, -0.2, 2.2]).astype(
+            np.float32)
+
+    specs = []  # (x, y, y_mask, x_group, y_group), numpy, batched
+    if name == "joint_small":
+        h, o = cloud(nh), cloud(no, 0.2)
+        gh, go = rng.randint(0, 14, (B, nh)), rng.randint(0, 14, (B, no))
+        mh, mo = rng.rand(B, nh) < 0.3, rng.rand(B, no) < 0.4
+        specs = [(h, o, mo, gh, go), (o, h, mh, go, gh),
+                 (o, h, None, None, None)]
+    elif name == "all_masked":
+        x, y = cloud(120), cloud(80)
+        specs = [(x, y, np.zeros((B, 80), bool), None, None),
+                 (y, x, None, None, None)]
+    elif name == "empty_groups":
+        x, y = cloud(150), cloud(90)
+        specs = [(x, y, None, rng.randint(0, 5, (B, 150)),
+                  rng.randint(0, 3, (B, 90))), (x, y, None, None, None)]
+    elif name == "duplicates":
+        x, y = cloud(130), cloud(200)
+        yg = rng.randint(0, 3, (B, 200))
+        y[:, 100:150], yg[:, 100:150] = y[:, :50], yg[:, :50]
+        specs = [(x, y, None, rng.randint(0, 3, (B, 130)), yg),
+                 (x, y, None, None, None)]
+    elif name == "batch2":
+        specs = [(cloud(300), cloud(210), rng.rand(B, 210) > 0.2,
+                  rng.randint(0, 5, (B, 300)), rng.randint(0, 5, (B, 210))),
+                 (cloud(90), cloud(400), None, None, None)]
+    tensors = {}  # one torch tensor per numpy cloud: shared clouds stay so
+
+    def tt(a, dt=torch.float32):
+        if a is None:
+            return None
+        if id(a) not in tensors:
+            tensors[id(a)] = torch.as_tensor(a).to(dt).to(dev).contiguous()
+        return tensors[id(a)]
+
+    problems, raw = [], []
+    for x, y, ym, xg, yg in specs:
+        tx, ty = tt(x), tt(y)
+        problems.append((tx, ty, *group_rows(
+            tx, ty, tt(ym, torch.bool), tt(xg, torch.int64),
+            tt(yg, torch.int64))))
+        opt = lambda a, b: None if a is None else a[b]  # noqa: E731
+        raw.append([(x[b], y[b], opt(ym, b), opt(xg, b), opt(yg, b))
+                    for b in range(B)])
+    return problems, raw
 
 
 @pytest.fixture()
@@ -53,7 +124,8 @@ def cuda_device():
 @pytest.mark.parametrize("name", list(CASES))
 def test_kernel_matches_plain_on_card(cuda_device, name):
     """The CUDA kernel against the plain version on the card: 1e-5 on
-    distances (unit-scale points), identical indices, one launch counted."""
+    distances (unit-scale points), identical indices; two calls bitwise
+    equal, one launch counted per call."""
     from chore_tpu_torch.ops import nn as tnn
     from chore_tpu_torch.ops.nn import group_rows
 
@@ -66,11 +138,94 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
                         opt(yg, torch.int64))
     before = tnn.launches["nn_grouped"]
     dk, ik = tnn.nn_grouped(tx, ty, qg, rg)
+    dk2, ik2 = tnn.nn_grouped(tx, ty, qg, rg)
     dp, ip = tnn.nn_sqdist_plain(tx, ty, qg, rg)
     torch.cuda.synchronize()
-    assert tnn.launches["nn_grouped"] == before + 1
+    assert tnn.launches["nn_grouped"] == before + 2
+    assert torch.equal(dk, dk2) and torch.equal(ik, ik2)
     assert torch.equal(ik, ip)
     torch.testing.assert_close(dk, dp, atol=1e-5, rtol=0)
+
+
+def assert_nn_close(d, i, problem, tol):
+    """(d, i) of the kernel against the plain version of ``problem``:
+    distances within ``tol``; an index may differ only where the best two
+    distances lie within ``tol`` of each other; the unmatched get the
+    sentinel and index 0."""
+    from chore_tpu_torch.ops.nn import BIG, nn_sqdist_plain
+
+    x, y, qg, rg = problem
+    dp, ip = nn_sqdist_plain(*problem)
+    torch.testing.assert_close(d, dp, atol=tol, rtol=0)
+    dm = ((x * x).sum(-1, keepdim=True) - 2.0 * torch.bmm(
+        x, y.transpose(1, 2)) + (y * y).sum(-1)[:, None, :]).clamp_min(0)
+    if qg is not None:
+        dm = torch.where(qg[:, :, None] == rg[:, None, :], dm,
+                         torch.full_like(dm, BIG))
+    if dm.shape[-1] >= 2:
+        top = torch.topk(dm, 2, dim=-1, largest=False).values
+        sure = (top[..., 1] - top[..., 0]) > tol
+    else:
+        sure = torch.ones_like(d, dtype=torch.bool)
+    assert not bool(((i != ip) & sure).any())
+    unmatched = dp >= 0.5 * BIG
+    assert bool(((d[unmatched] == BIG) & (i[unmatched] == 0)).all())
+
+
+MULTI_CASES = ["joint_small", "joint_full", "all_masked", "empty_groups",
+               "duplicates", "batch2"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MULTI_CASES)
+def test_multi_matches_plain_on_card(cuda_device, name):
+    """One launch for every problem of the case, each answer against its
+    plain version (5e-5 on distances: points near z = 2.2, |x|^2 ~ 5; the
+    near-tie index rule); two calls bitwise equal; the shared scan's two
+    answers each equal to a separate call of the kernel."""
+    from chore_tpu_torch.ops import nn as tnn
+
+    problems, _ = multi_case(name.replace("_full", "_small"), cuda_device,
+                             scale="full" if name == "joint_full" else 1)
+    before = tnn.launches["nn_grouped"]
+    out = tnn.nn_grouped_multi(problems)
+    out2 = tnn.nn_grouped_multi(problems)
+    torch.cuda.synchronize()
+    assert tnn.launches["nn_grouped"] == before + 2
+    shared = [k for kind, k, _ in tnn.plan(problems) if kind == tnn.SHARED]
+    # the joint step's o->h pair, and the pairs built over one x and y
+    assert len(shared) == (0 if name in ("all_masked", "batch2") else 1)
+    for p, (d, i), (d2, i2) in zip(problems, out, out2):
+        assert torch.equal(d, d2) and torch.equal(i, i2)
+        assert_nn_close(d, i, p, 5e-5)
+        ds, is_ = tnn.nn_grouped(*p)  # alone: the same scan, bitwise
+        assert torch.equal(d, ds) and torch.equal(i, is_)
+    if name == "duplicates":
+        for _, i in out:
+            assert not bool(((i >= 100) & (i < 150)).any())
+
+
+@pytest.mark.cuda
+def test_multi_is_one_kernel_per_call(cuda_device):
+    """100 multi calls of the joint step's three problems under
+    torch.profiler run exactly 100 kernels on the card: one launch per
+    call, no second pass, no index conversion."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chore_tpu_torch.ops import nn as tnn
+
+    problems, _ = multi_case("joint_small", cuda_device, scale="full")
+    tnn.nn_grouped_multi(problems)  # build and load first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(100):
+            tnn.nn_grouped_multi(problems)
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+    assert sum(ev.count for ev in kernels) == 100, [
+        (ev.key, ev.count) for ev in kernels]
 
 
 # --------------------------------------------------------------------- #

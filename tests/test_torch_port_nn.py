@@ -142,10 +142,15 @@ def test_entry_point_is_typed(monkeypatch):
     from chore_tpu_torch.ops import nn as tnn
 
     class Lib:
-        nn_grouped_launch = ctypes.CDLL(None).labs
+        nn_multi_launch = ctypes.CDLL(None).labs
 
     monkeypatch.setattr(cuda_build, "load", lambda name: Lib)
     fn = tnn._entry_point()
-    assert list(fn.argtypes) == ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                                 + [ctypes.c_void_p])
+    # (const NNProblem* problems, int n, void* stream): the table is an
+    # array of structs of 8 pointers and 4 ints
+    assert list(fn.argtypes) == [ctypes.POINTER(tnn.Problem), ctypes.c_int,
+                                 ctypes.c_void_p]
     assert fn.restype is ctypes.c_int
+    assert [f[1] for f in tnn.Problem._fields_] == (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4)
+    assert ctypes.sizeof(tnn.Problem) == 80

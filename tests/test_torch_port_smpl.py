@@ -32,7 +32,7 @@ def params():
 def _split(lib_init, params, tensor):
     pose, betas, trans = params
     if tensor:
-        return lib_init(t(pose), t(betas), t(trans))
+        return lib_init(t(pose), t(betas), t(trans), device="cpu")
     return lib_init(pose, betas, trans)
 
 
@@ -92,10 +92,10 @@ def test_priors(params):
     from chore_tpu_torch.smpl import make_hand_prior as th
 
     pose = np.random.RandomState(3).randn(2, 156).astype(np.float32) * 0.2
-    np.testing.assert_allclose(n(tb()(t(pose))), np.asarray(jb()(pose)),
-                               rtol=1e-5)
-    np.testing.assert_allclose(n(th()(t(pose))), np.asarray(jh()(pose)),
-                               rtol=1e-5)
+    np.testing.assert_allclose(n(tb(device="cpu")(t(pose))),
+                               np.asarray(jb()(pose)), rtol=1e-5)
+    np.testing.assert_allclose(n(th(device="cpu")(t(pose))),
+                               np.asarray(jh()(pose)), rtol=1e-5)
 
 
 def test_smplh_device_default(monkeypatch):
@@ -104,3 +104,18 @@ def test_smplh_device_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         SMPLH(synthetic_smplh(num_verts=64))
+
+
+@pytest.mark.parametrize("helper", ["make_body_prior", "make_hand_prior",
+                                    "init_params"])
+def test_helpers_device_default(monkeypatch, helper):
+    """With no device named the helpers put their tensors on the card, and
+    raise where there is none (no silent CPU fall back)."""
+    import chore_tpu_torch.smpl as tsmpl
+
+    args = {"init_params": (np.zeros((1, 72), np.float32),
+                            np.zeros((1, 10), np.float32),
+                            np.zeros((1, 3), np.float32))}.get(helper, ())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(tsmpl, helper)(*args)
