@@ -27,7 +27,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      frame whose masks are a person box and an object disk; one warm-up,
      then timed runs with per-stage times; every kernel of each path must
      have launched in that path's run, K1 once per joint step.
-  5. the kernel table as one JSON line, then the result line.
+  5. recon: the entry points at the release "mixed" precision config on
+     the committed example frame: host decode and prep times; one
+     ``Reconstructor("chore-release")`` reconstruction, then the same in
+     f32 (every kernel must launch in each, K1 once per joint step; plys
+     saved and read back);
+     one frame through ``cli.recon.recon_fit`` (a second call skips it);
+     the small-config entry point on the card against the CPU; last, the
+     release encoder in f32 and bf16 (per call, and under torch.profiler).
+  6. the kernel table as one JSON line (launches counted through the
+     entry point), then the result line.
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -58,7 +67,7 @@ NN_DIST_TOL = 5e-5
 COV_REL_TOL = 1e-5
 COV_GRAD_REL_TOL = 1e-5
 
-PHASES = ("kernels", "field", "fit")
+PHASES = ("kernels", "field", "fit", "recon")
 
 
 def log(*a):
@@ -757,6 +766,270 @@ def run_fit(torch, dev, card, counters):
 
 
 # --------------------------------------------------------------------- #
+# phase 5: the entry points (api.Reconstructor, cli.recon) at the release
+# "mixed" precision config, on the committed example frame
+EXAMPLE_SEQ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chore_tpu_torch", "assets", "example_synth")
+EXAMPLE_FRAME = os.path.join(EXAMPLE_SEQ, "frame0000")
+ENTRY_TOL = 1e-3  # card vs CPU at the entry point, f32, relative
+
+
+def time_decode_and_prep(tmp):
+    """Host ms of read_rgb/read_gray per file and of TestImagePrep.prepare
+    on the example frame (crop info into ``tmp``)."""
+    from chore_tpu_torch.data.imageio import read_gray, read_rgb
+    from chore_tpu_torch.data.test_data import TestImagePrep
+
+    out = {}
+    for name in ("k1.color.jpg", "k1.person_mask.jpg", "k1.obj_rend_mask.jpg"):
+        path = os.path.join(EXAMPLE_FRAME, name)
+        for fn in (read_rgb, read_gray):
+            t0 = time.perf_counter()
+            img = fn(path)
+            out[f"{fn.__name__}/{name}"] = (time.perf_counter() - t0) * 1e3
+            log(f"  {fn.__name__}({name}): {img.shape} "
+                f"{out[f'{fn.__name__}/{name}']:.1f} ms (host)")
+    prep = TestImagePrep(crop_info_dir=tmp)
+    t0 = time.perf_counter()
+    item = prep.prepare(os.path.join(EXAMPLE_FRAME, "k1.color.jpg"))
+    out["prepare"] = (time.perf_counter() - t0) * 1e3
+    if item["images"].shape != (512, 512, 5) or not np.isfinite(
+            item["images"]).all():
+        raise SystemExit("recon: bad prepared image")
+    log(f"  TestImagePrep.prepare (512^2 net input): {out['prepare']:.1f} ms "
+        "(host)")
+    return out
+
+
+def release_reconstruct(torch, dev, card, counters, tmp, precision="mixed"):
+    """``Reconstructor`` at the default ChoreConfig (5 stacks, 512^2 input,
+    release schedule with sil, synthetic SMPL-H, sphere template, seeded
+    random weights) in ``precision`` ("mixed", the release default, or
+    "float32") on the example frame: s/image, stage ms, iterations and ms
+    per step; the launch counts of this run; outputs finite; plys written
+    and read back."""
+    from chore_tpu_torch.api import Reconstructor
+    from chore_tpu_torch.config import ChoreConfig
+    from chore_tpu_torch.utils.meshio import load_ply
+
+    cfg = ChoreConfig(precision=precision)
+    rec = Reconstructor(cfg, obj_name="basketball",
+                        exp_root=os.path.join(tmp, "experiments"),
+                        crop_info_dir=tmp, device=dev)
+    want = torch.bfloat16 if precision == "mixed" else torch.float32
+    if rec.model.encoder_dtype != want:
+        raise SystemExit(f"recon: {precision} runs a {rec.model.encoder_dtype} "
+                         "encoder")
+    fit_batch, fits = rec.fitter.fit_batch, []
+
+    def recording(*a, **k):  # keeps fit_batch's result (its iterations)
+        fits.append(fit_batch(*a, **k))
+        return fits[-1]
+
+    rec.fitter.fit_batch = recording
+    for d, k in counters.values():
+        d[k] = 0
+    rec.fitter.timer.reset()
+    t0 = time.perf_counter()
+    out = rec.reconstruct(os.path.join(EXAMPLE_FRAME, "k1.color.jpg"),
+                          generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = {name: d[k] for name, (d, k) in counters.items()}
+    summary = rec.fitter.timer.summary()
+    stages = {k: v["mean_ms"] for k, v in summary.items()}
+    joint_steps = summary.get("joint_nn", {}).get("count", 0)
+    iters = fits[0]["iters"]
+    steps = {k: rec.fitter.cfg.steps_per_iter * v for k, v in iters.items()}
+    steps["joint"] = joint_steps
+    per_step = {k: round(stages[f"phase_{k}"] / n, 3) for k, n in
+                steps.items() if n}
+    log(f"  Reconstructor('chore-release', precision={precision}): "
+        f"{sec:.4f} s/image (prep + fit) [{card}]")
+    log(f"  stages ms: {json.dumps(stages)} [{card}]")
+    log(f"  iterations per phase: {json.dumps(iters)}; ms per step by phase: "
+        f"{json.dumps(per_step)}")
+    log(f"  kernel launches through the entry point: {json.dumps(counts)} "
+        f"(joint steps: {joint_steps})")
+    if counts["nn_grouped"] != joint_steps:
+        raise SystemExit(f"recon: {counts['nn_grouped']} K1 launches for "
+                         f"{joint_steps} joint steps")
+    for name, n in counts.items():
+        if n <= 0:
+            raise SystemExit(f"recon: the entry point never launched {name}")
+    arrays = [out["smpl_verts"], out["obj_verts"], out["obj_R"],
+              *out["smpl_params"].values(), *out["obj_params"].values()]
+    if not all(np.isfinite(a).all() for a in arrays):
+        raise SystemExit("recon: non-finite output")
+    if out["smpl_verts"].shape != (1, 6890, 3):
+        raise SystemExit(f"recon: smpl_verts {out['smpl_verts'].shape}")
+    stem = rec.save(out, os.path.join(tmp, f"result_{precision}"))[0]
+    for name, vk in (("smpl.ply", "smpl_verts"), ("object.ply", "obj_verts")):
+        v, _ = load_ply(os.path.join(stem, name))
+        if not np.array_equal(v, out[vk][0]):
+            raise SystemExit(f"recon: {name} does not load back")
+    fit_s = sum(summary[k]["total_s"] for k in (
+        "encode", "generate_pclouds", "optimize_smpl", "silhouette_prep",
+        "optimize_object"))
+    return {"sec": sec, "fit_s": fit_s, "launches": counts,
+            "joint_steps": joint_steps, "iters": iters,
+            "ms_per_step": per_step, "stages_ms": stages}
+
+
+def cli_one_frame(torch, dev, card, tmp):
+    """``cli.recon.recon_fit`` over the one-frame example sequence at the
+    release config: s/frame; a second call skips the frame."""
+    from chore_tpu_torch.cli.recon import recon_fit
+    from chore_tpu_torch.config import ChoreConfig
+
+    outpath = os.path.join(tmp, "recon_out")
+    kw = dict(obj_name="basketball", exp_root=os.path.join(tmp, "exp"),
+              device=dev)
+    t0 = time.perf_counter()
+    recon_fit(ChoreConfig(), EXAMPLE_SEQ, "smoke", outpath, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    done = os.path.join(outpath, "example_synth", "frame0000", "smoke")
+    files = sorted(os.listdir(done))
+    if files != ["k1.object.pkl", "k1.object.ply", "k1.smpl.pkl",
+                 "k1.smpl.ply"]:
+        raise SystemExit(f"recon cli: wrote {files}")
+    before = os.stat(os.path.join(done, "k1.smpl.ply")).st_mtime_ns
+    again = recon_fit(ChoreConfig(), EXAMPLE_SEQ, "smoke", outpath, **kw)
+    if again.timer.summary() or os.stat(os.path.join(
+            done, "k1.smpl.ply")).st_mtime_ns != before:
+        raise SystemExit("recon cli: the second run did not skip the frame")
+    log(f"  cli.recon.recon_fit one frame (release config, model and "
+        f"template loading included): {sec:.4f} s/frame; second run skipped "
+        f"[{card}]")
+    return sec
+
+
+def entry_card_vs_cpu(torch, dev, tmp):
+    """The small-config Reconstructor on the card and on the CPU, f32, the
+    same seeded weights and draws: outputs within ENTRY_TOL relative."""
+    from chore_tpu_torch.api import Reconstructor
+    from chore_tpu_torch.config import ChoreConfig
+    from chore_tpu_torch.recon.fitter import FitConfig
+    from chore_tpu_torch.recon.generator import SamplerConfig, make_draws
+
+    cfg = ChoreConfig(num_stack=2, net_img_size=(64, 64), precision="float32")
+    fit = FitConfig(iter_kpts_max=2, iter_obj=2, iter_sil=2, iter_joint_max=4,
+                    steps_per_iter=3, obj_samples=500, net_in_size=64,
+                    sil_rend_size=64, svd_jitter=False)
+    samp = SamplerConfig(num_steps=2, sample_num=512, num_rounds=2,
+                         num_points=256)
+    g = torch.Generator().manual_seed(1)
+    draws = {k: make_draws(samp, 1, g, "cpu") for k in ("human", "object")}
+    outs = []
+    with _FixedJitter(torch):
+        for d in (dev, torch.device("cpu")):
+            rec = Reconstructor(cfg, exp_root=os.path.join(tmp, "none"),
+                                fit_cfg=fit, sampler_cfg=samp,
+                                crop_info_dir=tmp, device=d)
+            dr = {k: {n: v.to(d) for n, v in x.items()}
+                  for k, x in draws.items()}
+            outs.append(rec.reconstruct(
+                os.path.join(EXAMPLE_FRAME, "k1.color.jpg"), draws=dr))
+    a, b = outs
+    worst = 0.0
+    for k in ("smpl_verts", "obj_verts", "obj_R"):
+        worst = max(worst, np.abs(a[k] - b[k]).max()
+                    / max(np.abs(b[k]).max(), 1e-6))
+    log(f"  entry point card vs CPU (small config, f32): max rel diff "
+        f"{worst:.3g} (tol {ENTRY_TOL})")
+    if not worst <= ENTRY_TOL:
+        raise SystemExit("recon: card disagrees with the CPU at the entry "
+                         "point")
+
+
+def encode_device_profile(torch, fn, reps=3):
+    """(device ms per call, kernel launches per call, top kernels) of
+    ``fn()`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                               getattr(e, "self_cuda_time_total", 0.0))
+    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    return (sum(dev_us(e) for e in kernels) / 1e3 / reps,
+            sum(e.count for e in kernels) / reps,
+            [(round(dev_us(e) / 1e3 / reps, 4), e.count // reps, e.key[:70])
+             for e in top])
+
+
+def encoder_precisions(torch, dev, card):
+    """The release field's encode (1x512^2x5) in f32 and in bf16 ("mixed"),
+    the same seeded weights: ms per call (events around back-to-back
+    calls), device ms and kernel launches per call (torch.profiler), and
+    the bf16 feature gap."""
+    from chore_tpu_torch.models.chore import FieldConfig, build_field
+
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(rng.rand(1, 512, 512, 5).astype(np.float32)).to(
+        dev)
+    out = {}
+    with torch.no_grad():
+        feats = {}
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            model = build_field(FieldConfig(), device=dev, seed=0,
+                                encoder_dtype=dt)
+            f, tmpx = model.encode(images, train=False)
+            feats[name] = (f[-1].float(), tmpx)
+            enc = lambda: model.encode(images, train=False)  # noqa: E731
+            out[f"encode_{name}_ms"] = cuda_ms(enc, 5)
+            dms, launches, top = encode_device_profile(torch, enc)
+            out[f"encode_{name}_device_ms"] = dms
+            out[f"encode_{name}_launches"] = launches
+            log(f"  encode {name}: device {dms:.3f} ms in {launches:.0f} "
+                f"kernel launches; top (ms, launches, kernel): "
+                f"{json.dumps(top)}")
+            del model
+    ref = feats["f32"][0]
+    gap = ((feats["bf16"][0] - ref).abs().max() / ref.abs().max()).item()
+    out["bf16_feature_gap"] = gap
+    log(f"  encode 1x512^2x5: f32 {out['encode_f32_ms']:.3f} ms, bf16 (mixed) "
+        f"{out['encode_bf16_ms']:.3f} ms; bf16 vs f32 last-stack features: "
+        f"max |diff| {gap:.4g} of the largest magnitude [{card}]")
+    if not (np.isfinite(gap) and gap < 0.1):
+        raise SystemExit("recon: bf16 encoder features far from f32")
+    return out
+
+
+def run_recon(torch, dev, card, counters):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        result = {"decode_ms": time_decode_and_prep(tmp)}
+        result["api"] = release_reconstruct(torch, dev, card, counters, tmp)
+        # the same entry point in f32, beside it in the same call
+        result["api_f32"] = release_reconstruct(torch, dev, card, counters,
+                                                 tmp, precision="float32")
+        result["cli_s"] = cli_one_frame(torch, dev, card, tmp)
+        entry_card_vs_cpu(torch, dev, tmp)
+        # last: torch.profiler runs here, and nothing timed comes after it
+        result.update(encoder_precisions(torch, dev, card))
+    # what prepare decodes: the colour frame, and each mask as gray
+    d = result["decode_ms"]
+    host = (d["read_rgb/k1.color.jpg"] + d["read_gray/k1.person_mask.jpg"]
+            + d["read_gray/k1.obj_rend_mask.jpg"])
+    log(f"  host decode of the frame's three files: {host:.1f} ms = "
+        f"{100 * host / 1e3 / result['api']['sec']:.1f}% of the "
+        f"reconstruction [{card}]")
+    log(json.dumps({"recon": result, "card": card}))
+    return result
+
+
+# --------------------------------------------------------------------- #
 # optional phase: where the fit's time goes (torch.profiler)
 def run_profile(torch, dev, card, out_dir):
     """A release-width fit at its defaults (the silhouette phase on) with
@@ -914,8 +1187,14 @@ def main(argv=None):
     if "fit" in phases:
         log("phase fit:")
         fit = run_fit(torch, dev, card, counters)
-        for name in kernels:  # the main path: the default fit, sil on
+        for name in kernels:  # the fitter's path: the default fit, sil on
             kernels[name]["launches"] = fit["sil"]["launches"][name]
+
+    if "recon" in phases:
+        log("phase recon:")
+        recon = run_recon(torch, dev, card, counters)
+        for name in kernels:  # the main path: the release entry point
+            kernels[name]["launches"] = recon["api"]["launches"][name]
 
     if "profile" in phases:
         log("phase profile:")

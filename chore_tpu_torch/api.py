@@ -1,0 +1,156 @@
+"""One-call reconstruction API (counterpart of ``chore_tpu/api.py``).
+
+Wraps model loading, per-image preparation and fitting into one object:
+
+    from chore_tpu_torch.api import Reconstructor
+    rec = Reconstructor("chore-release", obj_name="basketball")
+    out = rec.reconstruct("photo/k1.color.jpg")   # needs masks+mocap+kpts
+    rec.save(out, "result_dir")                   # smpl.ply + object.ply
+
+Runs on the card unless ``device="cpu"``. Overlay rendering comes with the
+demo slice (``ROADMAP.md``), and data-parallel reconstruction with DDP.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from chore_tpu_torch import resolve_device
+from chore_tpu_torch.cli.common import (
+    load_object_template,
+    load_smplh,
+    load_trained,
+)
+from chore_tpu_torch.config import ChoreConfig, load_config
+from chore_tpu_torch.data import TestImagePrep, collate
+from chore_tpu_torch.recon import losses as L
+from chore_tpu_torch.recon.fitter import ReconFitter
+from chore_tpu_torch.utils.meshio import save_ply
+
+OVERLAY_NOT_PORTED = (
+    "overlay rendering is not ported yet: it comes with the demo/overlay "
+    "slice in ROADMAP.md (Queue 1), which also needs an image writer")
+
+
+def _numpy(tree):
+    if torch.is_tensor(tree):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree
+
+
+class Reconstructor:
+    """Joint human + object reconstruction from single images.
+
+    Args:
+      exp_name_or_cfg: experiment name (loads configs/{name}.json when
+        present) or a ChoreConfig.
+      obj_name: BEHAVE object category (template lookup; sphere stand-in
+        when templates are unavailable).
+      coco: in-the-wild mode (mean-centre restaging + COCO weights).
+      exp_root: checkpoint search root.
+      fit_cfg / sampler_cfg: schedule overrides (default: release).
+      crop_info_dir: where the per-image crop info is written (default:
+        next to the image).
+      device: the card unless "cpu".
+    """
+
+    def __init__(self, exp_name_or_cfg="chore-release", obj_name="basketball",
+                 coco=False, exp_root="experiments", fit_cfg=None,
+                 sampler_cfg=None, gender="male", crop_info_dir=None,
+                 device=None):
+        if isinstance(exp_name_or_cfg, ChoreConfig):
+            cfg = exp_name_or_cfg
+        else:
+            try:
+                cfg = load_config(exp_name_or_cfg)
+            except FileNotFoundError:
+                cfg = ChoreConfig(exp_name=exp_name_or_cfg)
+        self.cfg = cfg
+        self.coco = coco
+        if (fit_cfg is not None
+                and fit_cfg.net_in_size != cfg.net_img_size[0]):
+            raise ValueError(
+                f"fit_cfg.net_in_size={fit_cfg.net_in_size} must match "
+                f"cfg.net_img_size={cfg.net_img_size[0]}: the image prep "
+                "scales keypoints into net-input pixels with one and the "
+                "keypoint loss rescales with the other")
+        self.device = resolve_device(device)
+        self.model = load_trained(cfg, exp_root=exp_root, device=self.device)
+        self.smplh = load_smplh(gender, device=self.device)
+        self.template_verts, self.template_faces = \
+            load_object_template(obj_name)
+        self.fitter = ReconFitter(
+            self.model, self.smplh, self.template_verts, self.template_faces,
+            weights=L.COCO_WEIGHTS if coco else L.BEHAVE_WEIGHTS,
+            cfg=fit_cfg if fit_cfg is not None else cfg.fit_config(),
+            sampler_cfg=(sampler_cfg if sampler_cfg is not None
+                         else cfg.sampler_config()),
+            device=self.device,
+        )
+        self.prep = TestImagePrep(
+            image_size=tuple(cfg.net_img_size), crop_size=cfg.loadSize,
+            use_mean_center=coco, crop_info_dir=crop_info_dir,
+        )
+
+    # ------------------------------------------------------------------ #
+    def reconstruct(self, rgb_files, use_silhouette=True, generator=None,
+                    draws=None):
+        """Fit one image or a list of images (one batch).
+
+        Each ``rgb_file`` needs the reference's sidecar files next to it
+        (person/object masks, openpose ``.color.json``, FrankMocap
+        ``.mocap.{ply,json}``). ``generator``: a torch.Generator on the
+        fitter's device for the fit's random draws (seed 0 if None);
+        ``draws``: injected point-generation draws (tests).
+
+        Returns a dict of numpy arrays (batch first, aligned with the
+        input): smpl_verts (B,V,3), smpl_faces, obj_verts (B,Vt,3),
+        obj_faces, smpl_params, obj_params, obj_R, pclouds, crop_info,
+        paths.
+        """
+        single = isinstance(rgb_files, (str, os.PathLike))
+        files = [rgb_files] if single else list(rgb_files)
+        items = [self.prep.prepare(str(f)) for f in files]
+        batch = collate(items)
+        result = self.fitter.fit_batch(
+            batch["images"], batch["crop_center"], batch["mocap_pose"],
+            batch["mocap_betas"], batch["kpts"], generator=generator,
+            use_silhouette=use_silhouette, draws=draws,
+        )
+        smpl_verts = self.smplh.verts(result["smpl_params"])
+        obj_verts = self.fitter.transform_obj(
+            result["obj_params"], points=self.fitter.template_verts)
+        return {
+            "smpl_verts": _numpy(smpl_verts),
+            "smpl_faces": np.asarray(self.smplh.faces),
+            "obj_verts": _numpy(obj_verts),
+            "obj_faces": self.template_faces,
+            "smpl_params": _numpy(result["smpl_params"]),
+            "obj_params": _numpy(result["obj_params"]),
+            "obj_R": _numpy(result["obj_R"]),
+            "pclouds": _numpy(result["pclouds"]),
+            "crop_info": [it["crop_info"] for it in items],
+            "paths": files,
+        }
+
+    # ------------------------------------------------------------------ #
+    def save(self, out, result_dir, overlay=False):
+        """Write frameNNNN/smpl.ply and object.ply for every frame of a
+        ``reconstruct`` result; returns the frame directories."""
+        if overlay:
+            raise NotImplementedError(OVERLAY_NOT_PORTED)
+        os.makedirs(result_dir, exist_ok=True)
+        written = []
+        for i in range(out["smpl_verts"].shape[0]):
+            stem = os.path.join(result_dir, f"frame{i:04d}")
+            os.makedirs(stem, exist_ok=True)
+            save_ply(os.path.join(stem, "smpl.ply"), out["smpl_verts"][i],
+                     out["smpl_faces"])
+            save_ply(os.path.join(stem, "object.ply"), out["obj_verts"][i],
+                     out["obj_faces"])
+            written.append(stem)
+        return written

@@ -1,0 +1,177 @@
+"""Host-side image operations of the test-time data path (numpy only).
+
+Counterpart of ``chore_tpu/data/image_ops.py``: mask loading with the
+reference's file-name fallbacks, the bbox of the mask union, centre crop
+with zero padding, the aspect-checked resize and the 5-channel RGBM3
+composition. Files are read through ``data/imageio.py``; ``resize``
+reproduces ``cv2.resize(..., INTER_LINEAR)`` bit for bit on uint8 input
+(OpenCV's 11-bit fixed point) and to float rounding on float input.
+"""
+from __future__ import annotations
+
+import os.path as osp
+
+import numpy as np
+
+from chore_tpu_torch.data.imageio import read_gray, read_rgb
+
+
+def mask_paths_for(rgb_file):
+    """Person/object mask paths with the reference's fallback chain."""
+    person = rgb_file.replace(".color.jpg", ".person_mask.jpg")
+    if not osp.isfile(person):
+        person = rgb_file.replace(".color.jpg", ".person_mask.png")
+    obj = rgb_file.replace(".color.jpg", ".obj_rend_mask.jpg")
+    if not osp.isfile(obj):
+        obj = rgb_file.replace(".color.jpg", ".obj_mask.jpg")
+        if not osp.isfile(obj):
+            obj = rgb_file.replace(".color.jpg", ".obj_mask.png")
+    return person, obj
+
+
+def load_masks(rgb_file, flip=False):
+    person_file, obj_file = mask_paths_for(rgb_file)
+    if not (osp.isfile(person_file) and osp.isfile(obj_file)):
+        raise FileNotFoundError(f"masks missing for {rgb_file}")
+    person, obj = read_gray(person_file), read_gray(obj_file)
+    if flip:
+        person = person[:, ::-1]
+        obj = obj[:, ::-1]
+    return person, obj
+
+
+def load_rgb(rgb_file, flip=False, blur_sigma=0.0):
+    if blur_sigma > 1e-6:
+        raise NotImplementedError(
+            "the blur augmentation is a training-time option and comes with "
+            "the training slice of the port")
+    rgb = read_rgb(rgb_file)
+    if flip:
+        rgb = rgb[:, ::-1]
+    return rgb
+
+
+def masks2bbox(masks, thres=127):
+    """(bmin, bmax) xyxy of the union of masks: the bbox of the pixels of
+    clip(sum, 0, 255) above ``thres`` (what the reference's union of
+    contour rects covers); an empty union gives [50000, 50000] /
+    [-100, -100]."""
+    comb = np.zeros_like(masks[0], dtype=np.int32)
+    for m in masks:
+        comb += m
+    ys, xs = np.nonzero(np.clip(comb, 0, 255) > thres)
+    if xs.size == 0:
+        return np.array([50000, 50000]), np.array([-100, -100])
+    return (np.array([xs.min(), ys.min()]),
+            np.array([xs.max() + 1, ys.max() + 1]))
+
+
+def crop(img, center, crop_size):
+    """Crop a (crop_size x crop_size) patch around center, zero-padded at
+    borders (including the reference's (w-1, h-1) clamping)."""
+    h, w = img.shape[:2]
+    size = np.broadcast_to(np.asarray(crop_size), (2,))
+    topleft = np.round(np.asarray(center) - size / 2).astype(int)
+    bottomright = np.round(np.asarray(center) + size / 2).astype(int)
+    x1, y1 = max(0, topleft[0]), max(0, topleft[1])
+    x2, y2 = min(w - 1, bottomright[0]), min(h - 1, bottomright[1])
+    cropped = img[y1:y2, x1:x2]
+    p1 = max(0, -topleft[0])
+    p2 = max(0, -topleft[1])
+    p3 = max(0, bottomright[0] - w + 1)
+    p4 = max(0, bottomright[1] - h + 1)
+    pad = [[p2, p4], [p1, p3]] + ([[0, 0]] if img.ndim == 3 else [])
+    return np.pad(cropped, pad)
+
+
+def resize(img, img_size):
+    """Aspect-ratio-checked resize to (width, height)."""
+    h, w = img.shape[:2]
+    if abs(w / h - img_size[0] / img_size[1]) >= 1e-6:
+        raise ValueError(f"aspect mismatch: image {img.shape} vs target "
+                         f"{img_size}")
+    return resize_linear(img, img_size)
+
+
+def _linear_taps(n_in, n_out, dtype):
+    """OpenCV's INTER_LINEAR source index and fraction per output index:
+    fx = (d + 0.5) * scale - 0.5 rounded to ``dtype`` (float32 for uint8
+    images, float64 for float64 ones), sx = floor(fx), fx -= sx."""
+    scale = 1.0 / (n_out / n_in)  # OpenCV's 1 / inv_scale, in double
+    f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(dtype)
+    s = np.floor(f).astype(np.int64)
+    return s, (f - s.astype(dtype)).astype(dtype)
+
+
+def resize_linear(img, size):
+    """``cv2.resize(img, size)`` (INTER_LINEAR), size = (width, height), for
+    uint8 and float images of 1 or more channels:
+
+    * the same size: a copy;
+    * an exact 2x downscale: OpenCV's INTER_AREA fast path (2x2 mean,
+      rounded for uint8), which it switches to there;
+    * else half-pixel bilinear. Horizontally the source index is clamped
+      to [0, w - 1] with the weight moved onto the kept sample; vertically
+      the two rows are clamped and keep their weights. uint8 runs OpenCV's
+      fixed point: 11-bit weights round(w * 2048) (float32 w), integer
+      horizontal sums, then ((b0 * (S0 >> 4)) >> 16) +
+      ((b1 * (S1 >> 4)) >> 16) + 2) >> 2; float runs the same taps with
+      float64 weights in float64."""
+    out_w, out_h = int(size[0]), int(size[1])
+    h, w = img.shape[:2]
+    if (out_w, out_h) == (w, h):
+        return img.copy()
+    u8 = img.dtype == np.uint8
+    if (w == 2 * out_w and h == 2 * out_h):
+        x = img.astype(np.int32 if u8 else np.float64)
+        s = (x[0::2, 0::2] + x[0::2, 1::2]) + (x[1::2, 0::2] + x[1::2, 1::2])
+        return ((s + 2) >> 2).astype(np.uint8) if u8 else (
+            (s * 0.25).astype(img.dtype))
+
+    wt = np.float32 if u8 else np.float64
+    sx, fx = _linear_taps(w, out_w, wt)
+    lo = sx < 0
+    fx[lo], sx[lo] = 0.0, 0
+    hi = sx >= w - 1
+    fx[hi], sx[hi] = 0.0, w - 1
+    sx1 = np.minimum(sx + 1, w - 1)
+    sy, fy = _linear_taps(h, out_h, wt)
+    sy0 = np.clip(sy, 0, h - 1)
+    sy1 = np.clip(sy + 1, 0, h - 1)
+    wx0, wy0 = wt(1.0) - fx, wt(1.0) - fy
+    extra = (1,) * (img.ndim - 2)
+    if u8:
+        ax0 = np.rint(wx0 * 2048).astype(np.int64).reshape(1, -1, *extra)
+        ax1 = np.rint(fx * 2048).astype(np.int64).reshape(1, -1, *extra)
+        by0 = np.rint(wy0 * 2048).astype(np.int64).reshape(-1, 1, *extra)
+        by1 = np.rint(fy * 2048).astype(np.int64).reshape(-1, 1, *extra)
+        x = img.astype(np.int64)
+        rows = x[:, sx] * ax0 + x[:, sx1] * ax1  # (h, out_w, ...)
+        # one-tap columns at the right edge: S[sx] * 2048
+        rows[:, hi] = x[:, sx[hi]] * 2048
+        s0, s1 = rows[sy0] >> 4, rows[sy1] >> 4
+        return ((((by0 * s0) >> 16) + ((by1 * s1) >> 16) + 2) >> 2).astype(
+            np.uint8)
+    x = img.astype(np.float64)
+    rows = (x[:, sx] * wx0.reshape(1, -1, *extra)
+            + x[:, sx1] * fx.reshape(1, -1, *extra))
+    rows[:, hi] = x[:, sx[hi]]
+    by0, by1 = wy0.reshape(-1, 1, *extra), fy.reshape(-1, 1, *extra)
+    return (rows[sy0] * by0 + rows[sy1] * by1).astype(img.dtype)
+
+
+def compose_rgbm3(obj_mask, person_mask, rgb):
+    """5-channel net input: background-removed RGB + person + object masks.
+    All inputs in [0, 1]; returns (H, W, 5) channels-last."""
+    comb = (person_mask > 0.5) | (obj_mask > 0.5)
+    rgb = rgb * comb[..., None]
+    return np.dstack([rgb, person_mask, obj_mask]).astype(np.float32)
+
+
+def compose_rgbm3_u8(obj_mask, person_mask, rgb):
+    """uint8 variant of ``compose_rgbm3``: the same k/255 values shipped as
+    ``k`` (``CHOREField.encode`` scales integer images by 1/255); threshold
+    127 is the float path's ``> 0.5``."""
+    comb = (person_mask > 127) | (obj_mask > 127)
+    rgb = rgb * comb[..., None].astype(np.uint8)
+    return np.dstack([rgb, person_mask, obj_mask]).astype(np.uint8)

@@ -72,15 +72,24 @@ def apply_decoder(dec, x):
 
 class CHOREField(nn.Module):
     """Encoder + 4 decoder heads. ``encode`` once per image, then ``query``
-    (or ``query_last``) any number of times."""
+    (or ``query_last``) any number of times.
 
-    def __init__(self, cfg: FieldConfig = FieldConfig()):
+    Mixed precision (``encoder_dtype=torch.bfloat16``, the release
+    config): every encoder conv runs in bf16 while GroupNorm statistics and
+    the decoder heads stay float32; feature maps are sampled from their
+    bf16-rounded values with float32 weights, as ``chore_tpu``'s gathers in
+    the encoder dtype do. Parameters are always float32."""
+
+    def __init__(self, cfg: FieldConfig = FieldConfig(),
+                 encoder_dtype=torch.float32):
         super().__init__()
         c = self.cfg = cfg
+        self.encoder_dtype = encoder_dtype
         self.image_filter = HGFilter(num_stack=c.num_stack,
                                      depth=c.num_hourglass, features=256,
                                      out_dim=c.hourglass_dim,
-                                     in_channels=c.input_channels)
+                                     in_channels=c.input_channels,
+                                     dtype=encoder_dtype)
         f = c.feature_size
         self.df = make_decoder(f, c.hidden_dim, 2)
         self.pca_predictor = make_decoder(f, c.hidden_dim, 9)
@@ -91,7 +100,8 @@ class CHOREField(nn.Module):
     def encode(self, images, train: bool = True):
         """images (B, H, W, 5) -> (list of (B, Hf, Wf, C) stack outputs,
         (B, Ht, Wt, 64) stem skip feature). Integer images are scaled by
-        1/255. ``train=False`` keeps only the last stack."""
+        1/255. ``train=False`` keeps only the last stack. Under bf16 the
+        stack outputs are bf16 and the skip feature float32."""
         if not torch.is_floating_point(images):
             images = images.to(torch.float32) / 255.0
         x = images.permute(0, 3, 1, 2).contiguous()
@@ -118,6 +128,11 @@ class CHOREField(nn.Module):
                   & (xy[..., 1] >= -1.0) & (xy[..., 1] <= 1.0))
         return xy, z_feat, in_img
 
+    def _sampled(self, sample, feat, xy):
+        """``sample`` of a map rounded to the encoder dtype, in float32 (a
+        no-op cast under float32)."""
+        return sample(feat.to(self.encoder_dtype).float(), xy)
+
     def _decode_masked(self, sampled, z_feat, tmpx_local, in_img):
         preds = self.decode(torch.cat([sampled, z_feat, tmpx_local], dim=-1))
         preds["df"] = torch.where(in_img[..., None], preds["df"],
@@ -132,8 +147,9 @@ class CHOREField(nn.Module):
         ``frozen_features``: gradients flow to ``points`` only."""
         sample = bilinear_sample_frozen if frozen_features else bilinear_sample
         xy, z_feat, in_img = self._point_inputs(points, crop_center)
-        tmpx_local = sample(tmpx, xy)
-        return [self._decode_masked(sample(f, xy), z_feat, tmpx_local, in_img)
+        tmpx_local = self._sampled(sample, tmpx, xy)
+        return [self._decode_masked(self._sampled(sample, f, xy), z_feat,
+                                    tmpx_local, in_img)
                 for f in feats]
 
     def query_last(self, feats, tmpx, points, crop_center,
@@ -144,8 +160,9 @@ class CHOREField(nn.Module):
         others as dead code, eager PyTorch would run them all."""
         sample = bilinear_sample_frozen if frozen_features else bilinear_sample
         xy, z_feat, in_img = self._point_inputs(points, crop_center)
-        return self._decode_masked(sample(feats[-1], xy), z_feat,
-                                   sample(tmpx, xy), in_img)
+        return self._decode_masked(self._sampled(sample, feats[-1], xy),
+                                   z_feat, self._sampled(sample, tmpx, xy),
+                                   in_img)
 
     def forward(self, images, points, crop_center, train: bool = True):
         feats, tmpx = self.encode(images, train=train)
@@ -153,13 +170,14 @@ class CHOREField(nn.Module):
 
 
 def build_field(cfg: FieldConfig = FieldConfig(), device=None, seed=0,
-                state_dict=None):
+                state_dict=None, encoder_dtype=torch.float32):
     """A CHOREField on ``device`` (the card unless ``device="cpu"``), in
     eval mode with frozen weights: from ``state_dict`` when given (e.g.
     ``convert.params_from_jax`` or a reference checkpoint), else a seeded
-    N(0, 0.02) init."""
+    N(0, 0.02) init. ``encoder_dtype``: torch.bfloat16 for the release
+    "mixed" precision."""
     device = resolve_device(device)
-    model = CHOREField(cfg)
+    model = CHOREField(cfg, encoder_dtype=encoder_dtype)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     else:

@@ -37,6 +37,8 @@ def _torch_key(path):
 
 
 def _torch_leaf(path, arr):
+    if torch.is_tensor(arr):  # e.g. a bfloat16 checkpoint leaf
+        arr = arr.float().numpy()
     a = np.asarray(arr, np.float32)
     if path[-1] == "kernel":
         if a.ndim == 4:  # (kH, kW, I, O) -> (O, I, kH, kW)

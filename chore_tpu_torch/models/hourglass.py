@@ -9,6 +9,7 @@ names are the reference torch names (``m{i}``, ``b1_{lv}``, ``top_m_{i}``,
 """
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -16,22 +17,26 @@ from chore_tpu_torch.models.layers import (
     ConvBlock,
     avg_pool_2x,
     bicubic_upsample_2x,
+    conv,
     group_norm,
+    norm,
 )
 
 
 class HourGlass(nn.Module):
     """Recursive U-module of depth ``depth`` at ``features`` channels."""
 
-    def __init__(self, depth, features):
+    def __init__(self, depth, features, dtype=torch.float32):
         super().__init__()
         self.depth = depth
+        self._interp = {}  # bf16 interpolation matrices on the device
         for lv in range(depth, 0, -1):
-            self.add_module(f"b1_{lv}", ConvBlock(features, features))
-            self.add_module(f"b2_{lv}", ConvBlock(features, features))
+            self.add_module(f"b1_{lv}", ConvBlock(features, features, dtype))
+            self.add_module(f"b2_{lv}", ConvBlock(features, features, dtype))
             if lv == 1:
-                self.add_module(f"b2_plus_{lv}", ConvBlock(features, features))
-            self.add_module(f"b3_{lv}", ConvBlock(features, features))
+                self.add_module(f"b2_plus_{lv}",
+                                ConvBlock(features, features, dtype))
+            self.add_module(f"b3_{lv}", ConvBlock(features, features, dtype))
 
     def _level(self, lv, inp):
         up1 = self._modules[f"b1_{lv}"](inp)
@@ -41,7 +46,7 @@ class HourGlass(nn.Module):
         else:
             low2 = self._modules[f"b2_plus_{lv}"](low1)
         low3 = self._modules[f"b3_{lv}"](low2)
-        return up1 + bicubic_upsample_2x(low3)
+        return up1 + bicubic_upsample_2x(low3, self._interp)
 
     def forward(self, x):
         return self._level(self.depth, x)
@@ -49,20 +54,22 @@ class HourGlass(nn.Module):
 
 class HGFilter(nn.Module):
     """Stem + ``num_stack`` hourglass stages. Release: 5 stacks, depth 2,
-    256 features, 5-channel input."""
+    256 features, 5-channel input. ``dtype`` is every conv's compute dtype
+    (bfloat16 in the release "mixed" precision); norms run in float32."""
 
     def __init__(self, num_stack=5, depth=2, features=256, out_dim=256,
-                 in_channels=5):
+                 in_channels=5, dtype=torch.float32):
         super().__init__()
         self.num_stack = num_stack
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3)
         self.bn1 = group_norm(64)
-        self.conv2 = ConvBlock(64, 128)
-        self.conv3 = ConvBlock(128, 128)
-        self.conv4 = ConvBlock(128, features)
+        self.conv2 = ConvBlock(64, 128, dtype)
+        self.conv3 = ConvBlock(128, 128, dtype)
+        self.conv4 = ConvBlock(128, features, dtype)
         for i in range(num_stack):
-            self.add_module(f"m{i}", HourGlass(depth, features))
-            self.add_module(f"top_m_{i}", ConvBlock(features, features))
+            self.add_module(f"m{i}", HourGlass(depth, features, dtype))
+            self.add_module(f"top_m_{i}", ConvBlock(features, features, dtype))
             self.add_module(f"conv_last{i}", nn.Conv2d(features, features, 1))
             self.add_module(f"bn_end{i}", group_norm(features))
             self.add_module(f"l{i}", nn.Conv2d(features, out_dim, 1))
@@ -72,8 +79,10 @@ class HGFilter(nn.Module):
 
     def forward(self, x, train=True):
         """x (B, C, H, W) -> (outputs list, tmpx, normx), NCHW; eval
-        (``train=False``) keeps only the last stack's output."""
-        x = F.relu(self.bn1(self.conv1(x)))
+        (``train=False``) keeps only the last stack's output. Under bf16
+        the outputs and normx are bf16, tmpx (after a norm) float32."""
+        dt = self.dtype
+        x = F.relu(norm(self.bn1, conv(self.conv1, x, dt)))
         tmpx = x
         x = avg_pool_2x(self.conv2(x))
         normx = x
@@ -83,12 +92,13 @@ class HGFilter(nn.Module):
         m = self._modules
         for i in range(self.num_stack):
             hg = m[f"m{i}"](previous)
-            ll = m[f"conv_last{i}"](m[f"top_m_{i}"](hg))
-            ll = F.relu(m[f"bn_end{i}"](ll))
-            tmp_out = m[f"l{i}"](ll)
+            ll = conv(m[f"conv_last{i}"], m[f"top_m_{i}"](hg), dt)
+            ll = F.relu(norm(m[f"bn_end{i}"], ll))
+            tmp_out = conv(m[f"l{i}"], ll, dt)
             outputs.append(tmp_out)
             if i < self.num_stack - 1:
-                previous = previous + m[f"bl{i}"](ll) + m[f"al{i}"](tmp_out)
+                previous = (previous + conv(m[f"bl{i}"], ll, dt)
+                            + conv(m[f"al{i}"], tmp_out, dt))
         if not train:
             outputs = outputs[-1:]
         return outputs, tmpx.detach(), normx

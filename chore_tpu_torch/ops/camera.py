@@ -41,6 +41,22 @@ class PerspectiveCamera:
     def height(self) -> int:
         return int(self.image_size * 0.75)
 
+    @property
+    def fx_px(self) -> float:
+        return self.fx * self.image_size
+
+    @property
+    def fy_px(self) -> float:
+        return self.fy * self.image_size
+
+    @property
+    def cx_px(self) -> float:
+        return self.cx * self.image_size
+
+    @property
+    def cy_px(self) -> float:
+        return self.cy * self.image_size
+
     def project_screen(self, points, crop_center=None):
         """(..., N, 3) camera-space points -> (px, py), each (..., N, 1), in
         original-image pixels, re-centred on the crop when ``crop_center``
@@ -53,8 +69,8 @@ class PerspectiveCamera:
         # mask rejects them), never inf/nan gradients
         z = torch.where(z.abs() < 1e-6,
                         torch.where(z < 0, -1e-6, 1e-6).to(z.dtype), z)
-        px = (self.fx * self.image_size) * x / z + self.cx * self.image_size
-        py = (self.fy * self.image_size) * y / z + self.cy * self.image_size
+        px = self.fx_px * x / z + self.cx_px
+        py = self.fy_px * y / z + self.cy_px
         if crop_center is not None:
             px = self.crop_size / 2.0 + px - crop_center[..., 0:1][..., None, :]
             py = self.crop_size / 2.0 + py - crop_center[..., 1:2][..., None, :]

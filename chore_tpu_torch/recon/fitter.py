@@ -219,12 +219,16 @@ class ReconFitter:
         return smpl_params, scale, traces, iters
 
     # ------------------------------------------------------------------ #
-    def transform_obj(self, obj_params, R=None):
-        """scale * (samples @ R + t) of the template's surface samples; R is
-        ``obj_R`` projected to SO(3) unless passed in."""
+    def transform_obj(self, obj_params, R=None, points=None):
+        """scale * (points @ R + t), of the template's surface samples unless
+        ``points`` (e.g. ``template_verts``) are given; R is ``obj_R``
+        projected to SO(3) unless passed in."""
         if R is None:
             R = project_so3(obj_params["obj_R"])
-        v = (torch.einsum("nd,bde->bne", self.obj_points, R)
+        pts = (self.obj_points if points is None
+               else torch.as_tensor(points, dtype=torch.float32,
+                                    device=self.device))
+        v = (torch.einsum("nd,bde->bne", pts, R)
              + obj_params["obj_t"][:, None])
         return v * obj_params["obj_s"][:, None, None]
 

@@ -1,10 +1,146 @@
-"""Mesh utilities the fitter needs (numpy), copied from
-``chore_tpu/utils/meshio.py`` so the port's outputs are identical: seeded
-area-weighted surface sampling, PCA axes, and the octasphere stand-in mesh.
+"""Mesh IO and the mesh utilities the fitter needs (numpy), copied from
+``chore_tpu/utils/meshio.py`` so the port reads and writes the same files
+byte for byte: PLY read (ascii and binary little endian) and ascii write,
+OBJ read/write, seeded area-weighted surface sampling, PCA axes, and the
+octasphere stand-in mesh.
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+def load_ply(path):
+    """Read a PLY mesh -> (verts (V,3) f32, faces (F,3) i32 or None)."""
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"ply":
+            raise ValueError(f"{path}: not a PLY file")
+        fmt = None
+        n_verts = n_faces = 0
+        vert_props = []
+        face_list_types = ("uchar", "int")  # (count, index) declared types
+        cur = None
+        while True:
+            line = f.readline().strip()
+            if line.startswith(b"format"):
+                fmt = line.split()[1].decode()
+            elif line.startswith(b"element vertex"):
+                n_verts = int(line.split()[-1])
+                cur = "vertex"
+            elif line.startswith(b"element face"):
+                n_faces = int(line.split()[-1])
+                cur = "face"
+            elif line.startswith(b"property") and cur == "vertex":
+                parts = line.split()  # "property <type> <name>"
+                vert_props.append((parts[2].decode(), parts[1].decode()))
+            elif line.startswith(b"property list") and cur == "face":
+                parts = line.split()  # "property list <cnt> <idx> <name>"
+                face_list_types = (parts[2].decode(), parts[3].decode())
+            elif line == b"end_header":
+                break
+
+        # full PLY scalar-type vocabulary (both the classic and sized
+        # spellings): open3d, for one, writes 'property list uchar uint'
+        type_map = {"float": "f4", "float32": "f4",
+                    "double": "f8", "float64": "f8",
+                    "uchar": "u1", "uint8": "u1",
+                    "char": "i1", "int8": "i1",
+                    "short": "i2", "int16": "i2",
+                    "ushort": "u2", "uint16": "u2",
+                    "int": "i4", "int32": "i4",
+                    "uint": "u4", "uint32": "u4"}
+        if fmt == "ascii":
+            verts = np.empty((n_verts, len(vert_props)), np.float64)
+            for i in range(n_verts):
+                verts[i] = [float(x) for x in f.readline().split()]
+            faces = []
+            for _ in range(n_faces):
+                vals = [int(x) for x in f.readline().split()]
+                if vals[0] == 3:
+                    faces.append(vals[1:4])
+                elif vals[0] == 4:
+                    faces.append([vals[1], vals[2], vals[3]])
+                    faces.append([vals[1], vals[3], vals[4]])
+        elif fmt == "binary_little_endian":
+            dtype = np.dtype([(n, type_map[t]) for n, t in vert_props])
+            data = np.frombuffer(f.read(n_verts * dtype.itemsize), dtype)
+            verts = np.stack([data[n] for n, _ in vert_props], axis=1)
+            raw = f.read()
+            faces = []
+            cnt_dt = np.dtype("<" + type_map[face_list_types[0]])
+            idx_dt = np.dtype("<" + type_map[face_list_types[1]])
+            stride3 = cnt_dt.itemsize + 3 * idx_dt.itemsize
+            # fast path: uniform all-triangle face block
+            if n_faces > 0 and len(raw) >= stride3 * n_faces:
+                fd = np.dtype([("n", cnt_dt), ("v", idx_dt, (3,))])
+                block = np.frombuffer(raw[: stride3 * n_faces], fd)
+                if (block["n"] == 3).all():
+                    faces = block["v"].astype(np.int64)
+            if len(faces) == 0:
+                off = 0
+                for _ in range(n_faces):
+                    cnt = int(np.frombuffer(raw, cnt_dt, 1, off)[0])
+                    off += cnt_dt.itemsize
+                    idx = np.frombuffer(raw, idx_dt, cnt, off).astype(
+                        np.int64
+                    )
+                    off += cnt * idx_dt.itemsize
+                    if cnt == 3:
+                        faces.append(idx)
+                    elif cnt == 4:
+                        faces.append([idx[0], idx[1], idx[2]])
+                        faces.append([idx[0], idx[2], idx[3]])
+        else:
+            raise ValueError(f"unsupported PLY format {fmt}")
+    xyz = verts[:, :3].astype(np.float32)
+    faces = np.asarray(faces, np.int32) if len(faces) else None
+    return xyz, faces
+
+
+def save_ply(path, verts, faces=None, colors=None):
+    """Write an ascii PLY (optionally vertex-colored point cloud)."""
+    verts = np.asarray(verts)
+    n_faces = 0 if faces is None else len(faces)
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {len(verts)}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        if colors is not None:
+            f.write("property uchar red\nproperty uchar green\nproperty uchar blue\n")
+        f.write(f"element face {n_faces}\n")
+        f.write("property list uchar int vertex_indices\nend_header\n")
+        if colors is not None:
+            c = np.clip(np.asarray(colors) * 255, 0, 255).astype(np.uint8)
+            for v, col in zip(verts, c):
+                f.write(f"{v[0]} {v[1]} {v[2]} {col[0]} {col[1]} {col[2]}\n")
+        else:
+            for v in verts:
+                f.write(f"{v[0]} {v[1]} {v[2]}\n")
+        if faces is not None:
+            for face in faces:
+                f.write(f"3 {face[0]} {face[1]} {face[2]}\n")
+
+
+def load_obj(path):
+    """Read an OBJ mesh -> (verts (V,3) f32, faces (F,3) i32)."""
+    verts, faces = [], []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("v "):
+                verts.append([float(x) for x in line.split()[1:4]])
+            elif line.startswith("f "):
+                idx = [int(t.split("/")[0]) - 1 for t in line.split()[1:]]
+                for k in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+    return np.asarray(verts, np.float32), np.asarray(faces, np.int32)
+
+
+def save_obj(path, verts, faces):
+    with open(path, "w") as f:
+        for v in verts:
+            f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+        for face in faces:
+            f.write(f"f {face[0]+1} {face[1]+1} {face[2]+1}\n")
+
 
 
 def sample_surface(verts, faces, n, seed=0):

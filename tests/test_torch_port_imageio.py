@@ -1,0 +1,128 @@
+"""The port's image decoder (``data/imageio.py``, numpy + zlib) against
+what ``chore_tpu`` reads with: ``read_rgb`` against
+``np.array(PIL.Image.open(f))`` and ``read_gray`` against
+``cv2.imread(f, cv2.IMREAD_GRAYSCALE)``, bitwise, on the committed example
+frame and on JPEGs and PNGs written here (baseline JPEG at quality 75 and
+95 in 4:4:4, 4:2:2, 4:2:0, 4:4:0 and grayscale, with restart intervals, at
+odd sizes; PNG gray, gray+alpha, RGB and RGBA). No case needed a 1-LSB
+allowance."""
+import itertools
+import os
+
+import numpy as np
+import pytest
+
+from chore_tpu_torch.data.imageio import read_gray, read_rgb
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLE = os.path.join(REPO, "chore_tpu_torch", "assets", "example_synth",
+                       "frame0000")
+SIZES = [(1, 1), (16, 17), (53, 37)]
+
+
+def _pixels(h, w, c, smooth, seed):
+    rng = np.random.RandomState(seed)
+    if smooth:
+        yy, xx = np.mgrid[:h, :w]
+        a = np.stack([(xx * 255.0 / max(w - 1, 1) + 30 * np.sin(yy / 3.0 + k))
+                      % 256 for k in range(c)], -1)
+    else:
+        a = rng.randint(0, 256, (h, w, c))
+    a = a.astype(np.uint8)
+    return a[..., 0] if c == 1 else a
+
+
+def _assert_like_pil_and_cv2(path):
+    import cv2
+    from PIL import Image
+
+    rgb, ref = read_rgb(path), np.array(Image.open(path))
+    assert rgb.dtype == ref.dtype and rgb.shape == ref.shape
+    np.testing.assert_array_equal(rgb, ref)
+    gray = read_gray(path)
+    np.testing.assert_array_equal(gray, cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+
+
+@pytest.mark.parametrize("name", ["k1.color.jpg", "k1.person_mask.jpg",
+                                  "k1.obj_rend_mask.jpg"])
+def test_committed_example(name):
+    _assert_like_pil_and_cv2(os.path.join(EXAMPLE, name))
+
+
+JPEG_CASES = {  # name -> (writer, channels, writer options)
+    "444": ("pil", 3, dict(subsampling=0)),
+    "422": ("pil", 3, dict(subsampling=1)),
+    "420": ("pil", 3, dict(subsampling=2)),
+    "gray": ("pil", 1, {}),
+    "420_restart": ("pil", 3, dict(subsampling=2, restart_marker_blocks=3)),
+    "440": ("cv2", 3, dict(sampling=0x121111)),
+    "gray_restart": ("cv2", 1, dict(rst=1)),
+}
+
+
+@pytest.mark.parametrize("case,quality,size", list(itertools.product(
+    sorted(JPEG_CASES), [75, 95], SIZES)))
+def test_generated_jpeg(tmp_path, case, quality, size):
+    import cv2
+    from PIL import Image
+
+    writer, c, opts = JPEG_CASES[case]
+    for smooth in (False, True):
+        a = _pixels(*size, c, smooth, seed=quality)
+        path = str(tmp_path / f"{case}_{smooth}.jpg")
+        if writer == "pil":
+            Image.fromarray(a).save(path, quality=quality, **opts)
+        else:
+            params = [cv2.IMWRITE_JPEG_QUALITY, quality]
+            if "rst" in opts:
+                params += [cv2.IMWRITE_JPEG_RST_INTERVAL, opts["rst"]]
+            if "sampling" in opts:
+                params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, opts["sampling"]]
+            cv2.imwrite(path, a if c == 1 else a[..., ::-1], params)
+        _assert_like_pil_and_cv2(path)
+
+
+@pytest.mark.parametrize("mode,size", list(itertools.product(
+    ["L", "LA", "RGB", "RGBA"], SIZES + [(40, 64)])))
+def test_generated_png(tmp_path, mode, size):
+    """PIL's and OpenCV's writers (OpenCV cannot write gray+alpha)."""
+    import cv2
+    from PIL import Image
+
+    c = len(mode)
+    for smooth in (False, True):
+        a = _pixels(*size, c, smooth, seed=c)
+        path = str(tmp_path / f"pil_{smooth}.png")
+        Image.fromarray(a).save(path)
+        _assert_like_pil_and_cv2(path)
+        if c != 2:
+            path = str(tmp_path / f"cv2_{smooth}.png")
+            cv2.imwrite(path, a if c == 1 else a[..., [2, 1, 0, 3][:c]])
+            _assert_like_pil_and_cv2(path)
+
+
+def test_unsupported_files_raise(tmp_path):
+    from PIL import Image
+
+    a = _pixels(20, 20, 3, False, seed=0)
+    prog = str(tmp_path / "prog.jpg")
+    Image.fromarray(a).save(prog, progressive=True)
+    with pytest.raises(ValueError, match="progressive.*prog.jpg|prog.jpg.*"
+                                         "progressive"):
+        read_rgb(prog)
+    inter = tmp_path / "inter.png"  # PIL writes no Adam7: flag it in IHDR
+    Image.fromarray(a).save(str(inter))
+    data = bytearray(inter.read_bytes())
+    data[8 + 8 + 12] = 1  # signature, IHDR length+type, w h depth type...
+    inter.write_bytes(bytes(data))
+    inter = str(inter)
+    with pytest.raises(ValueError, match="interlaced"):
+        read_gray(inter)
+    pal = str(tmp_path / "pal.png")
+    Image.fromarray(a).convert("P").save(pal)
+    with pytest.raises(ValueError, match="colour type 3"):
+        read_rgb(pal)
+    other = tmp_path / "x.jpg"
+    other.write_bytes(b"GIF89a....")
+    with pytest.raises(ValueError, match="neither a JPEG nor a PNG"):
+        read_rgb(str(other))

@@ -1,8 +1,8 @@
 """Package-level contracts of ``chore_tpu_torch``: it imports neither JAX,
-the JAX package nor cv2, its assets are byte copies of ``chore_tpu``'s, its
-entry points refuse to drop silently to the CPU, and ``fit_batch`` at its
-defaults runs the silhouette phase, neutralized on a frame with no object
-mask."""
+the JAX package, cv2, PIL, PyYAML nor msgpack, its assets are byte copies
+of ``chore_tpu``'s, its entry points refuse to drop silently to the CPU,
+and ``fit_batch`` at its defaults runs the silhouette phase, neutralized on
+a frame with no object mask."""
 import filecmp
 import os
 import subprocess
@@ -30,14 +30,17 @@ def _port_modules():
 
 def test_imports_no_jax_or_reference():
     """Importing every module of the port, in a fresh interpreter, leaves
-    jax, flax, optax, chore_tpu and cv2 (absent on the card's machine) out
-    of sys.modules."""
+    jax, flax, optax, chore_tpu, cv2, PIL, yaml and msgpack (absent on the
+    card's machine) out of sys.modules."""
     mods = _port_modules()
     assert "chore_tpu_torch.recon.silhouette" in mods and len(mods) > 15
+    assert {"chore_tpu_torch.api", "chore_tpu_torch.cli.recon",
+            "chore_tpu_torch.data.imageio"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'chore_tpu', 'cv2'))\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'chore_tpu', 'cv2', 'PIL', "
+            "'yaml', 'msgpack'))\n"
             "print(repr(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

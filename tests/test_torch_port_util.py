@@ -1,5 +1,8 @@
 """Shared helpers of the ``test_torch_port_*`` files: the same seeded
 inputs and the same weights into ``chore_tpu`` and ``chore_tpu_torch``."""
+import contextlib
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -72,9 +75,7 @@ def run_both_fits(fit_kw, samp_kw, frame, use_silhouette):
     projection: with ``svd_jitter=False`` an exact rotation makes the SVD
     backward 0/0 and every object step is skipped as non-finite; the fixed
     matrix is the deterministic stand-in for the production jitter."""
-    import chore_tpu.ops.rotation as jrot
     import chore_tpu.recon.fitter as jfit
-    import chore_tpu_torch.ops.rotation as trot
     import chore_tpu_torch.recon.fitter as tfit
     from chore_tpu.recon.generator import SamplerConfig as JSamp
     from chore_tpu.smpl import SMPLH as JSMPLH
@@ -87,14 +88,7 @@ def run_both_fits(fit_kw, samp_kw, frame, use_silhouette):
     arrays = synthetic_smplh()
     tv, tf = octasphere(radius=0.18, subdiv=1)
     key = jax.random.PRNGKey(0)
-    jitter = (1e-3 * np.random.RandomState(5).rand(3, 3)).astype(np.float32)
-
-    j_proj = jrot.project_so3
-    t_proj = trot.project_so3
-    jrot.project_so3 = jfit.project_so3 = lambda m: j_proj(m + jitter)
-    jit_t = torch.from_numpy(jitter)
-    trot.project_so3 = tfit.project_so3 = lambda m: t_proj(m + jit_t)
-    try:
+    with fixed_so3_jitter():
         fj = jfit.ReconFitter(model, params, JSMPLH(arrays), tv, tf,
                               cfg=jfit.FitConfig(**fit_kw),
                               sampler_cfg=JSamp(**samp_kw),
@@ -106,10 +100,29 @@ def run_both_fits(fit_kw, samp_kw, frame, use_silhouette):
                               device="cpu")
         out_t = ft.fit_batch(*frame, use_silhouette=use_silhouette,
                              draws=jax_fit_draws(key, 1, JSamp(**samp_kw)))
+    return out_j, out_t
+
+
+@contextlib.contextmanager
+def fixed_so3_jitter():
+    """Both packages add the same fixed 1e-3 matrix before every SO(3)
+    projection (the deterministic stand-in for the production jitter; see
+    ``run_both_fits``)."""
+    import chore_tpu.ops.rotation as jrot
+    import chore_tpu.recon.fitter as jfit
+    import chore_tpu_torch.ops.rotation as trot
+    import chore_tpu_torch.recon.fitter as tfit
+
+    jitter = (1e-3 * np.random.RandomState(5).rand(3, 3)).astype(np.float32)
+    j_proj, t_proj = jrot.project_so3, trot.project_so3
+    jrot.project_so3 = jfit.project_so3 = lambda m: j_proj(m + jitter)
+    jit_t = torch.from_numpy(jitter)
+    trot.project_so3 = tfit.project_so3 = lambda m: t_proj(m + jit_t)
+    try:
+        yield
     finally:
         jrot.project_so3 = jfit.project_so3 = j_proj
         trot.project_so3 = tfit.project_so3 = t_proj
-    return out_j, out_t
 
 
 def stacked_trace(traces, names):
@@ -226,3 +239,83 @@ def test_draws_replay_the_jax_sampler():
     lo, hi = torch.tensor(BOX_LO), torch.tensor(BOX_HI)
     np.testing.assert_allclose(n(lo + d["init_u"] * (hi - lo)),
                                np.asarray(want), atol=1e-6)
+
+
+# --------------------------------------------------------------------- #
+# the entry points: a small config on the committed example frame
+EXAMPLE_SEQ = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "chore_tpu_torch", "assets", "example_synth")
+EXAMPLE = os.path.join(EXAMPLE_SEQ, "frame0000", "k1.color.jpg")
+SMALL_CFG = dict(exp_name="small", num_stack=2, net_img_size=(64, 64),
+                 precision="float32")
+API_FIT = dict(iter_betas=1, iter_pose=1, iter_kpts=1, iter_kpts_max=2,
+               iter_obj=2, iter_sil=2, iter_joint=1, iter_joint_max=4,
+               steps_per_iter=3, obj_samples=128, net_in_size=64,
+               sil_rend_size=64, svd_jitter=False)
+API_SAMP = dict(num_steps=2, sample_num=256, num_rounds=2, num_points=128)
+
+
+def write_jax_checkpoint(exp_root, exp_name="small"):
+    """``chore_tpu``'s checkpoint of ``jax_field()``'s weights under
+    EXP_ROOT/<exp_name>/checkpoints."""
+    from chore_tpu.train.checkpoints import save_checkpoint
+
+    _, params = jax_field()
+    save_checkpoint(os.path.join(str(exp_root), exp_name, "checkpoints"),
+                    {"params": params}, 60.0, 1)
+    return params
+
+
+def api_pair(tmp_path, use_silhouette):
+    """``Reconstructor.reconstruct`` of ``chore_tpu`` (key 0) and of the
+    port (CPU, the same draws replayed) on the example frame, both loading
+    one JAX checkpoint, at the small config, under the fixed SO(3) jitter.
+    Returns (out_j, out_t, port Reconstructor)."""
+    from chore_tpu.api import Reconstructor as JRec
+    from chore_tpu.config import ChoreConfig as JCfg
+    from chore_tpu.recon.fitter import FitConfig as JFit
+    from chore_tpu.recon.generator import SamplerConfig as JSamp
+    from chore_tpu_torch.api import Reconstructor as TRec
+    from chore_tpu_torch.config import ChoreConfig as TCfg
+    from chore_tpu_torch.recon.fitter import FitConfig as TFit
+    from chore_tpu_torch.recon.generator import SamplerConfig as TSamp
+
+    exp_root = tmp_path / "experiments"
+    write_jax_checkpoint(exp_root)
+    key = jax.random.PRNGKey(0)
+    with fixed_so3_jitter():
+        rj = JRec(JCfg(**SMALL_CFG), obj_name="basketball",
+                  exp_root=str(exp_root), fit_cfg=JFit(**API_FIT),
+                  sampler_cfg=JSamp(**API_SAMP),
+                  crop_info_dir=str(tmp_path))
+        out_j = rj.reconstruct(EXAMPLE, use_silhouette=use_silhouette,
+                               key=key)
+        rt = TRec(TCfg(**SMALL_CFG), obj_name="basketball",
+                  exp_root=str(exp_root), fit_cfg=TFit(**API_FIT),
+                  sampler_cfg=TSamp(**API_SAMP), crop_info_dir=str(tmp_path),
+                  device="cpu")
+        out_t = rt.reconstruct(EXAMPLE, use_silhouette=use_silhouette,
+                               draws=jax_fit_draws(key, 1,
+                                                   JSamp(**API_SAMP)))
+    return out_j, out_t, rt
+
+
+def assert_api_outputs_match(out_j, out_t):
+    """The same keys; vertices and parameters within
+    ``assert_final_params_match``'s 1e-3 (numpy on both sides)."""
+    assert set(out_t) == set(out_j)
+    for k in ("smpl_verts", "obj_verts", "obj_R"):
+        assert out_t[k].shape == np.shape(out_j[k]), k
+        np.testing.assert_allclose(out_t[k], np.asarray(out_j[k]), atol=1e-3,
+                                   err_msg=k)
+    for group in ("smpl_params", "obj_params"):
+        assert set(out_t[group]) == set(out_j[group])
+        for k, v in out_j[group].items():
+            np.testing.assert_allclose(out_t[group][k], np.asarray(v),
+                                       atol=1e-3, err_msg=f"{group}/{k}")
+    np.testing.assert_array_equal(out_t["smpl_faces"], out_j["smpl_faces"])
+    np.testing.assert_array_equal(out_t["obj_faces"], out_j["obj_faces"])
+    assert out_t["paths"] == out_j["paths"]
+    for k, v in out_j["crop_info"][0].items():
+        np.testing.assert_array_equal(out_t["crop_info"][0][k], v)
