@@ -32,17 +32,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``Reconstructor("chore-release")`` reconstruction, then the same in
      f32 (every kernel must launch in each, K1 once per joint step; plys
      saved and read back);
-     one frame through ``cli.recon.recon_fit`` (a second call skips it);
-     the small-config entry point on the card against the CPU; last, the
-     release encoder in f32 and bf16 (per call, and under torch.profiler).
-  6. the kernel table as one JSON line (launches counted through the
-     entry point), then the result line.
+     ``Reconstructor.save`` timed with the overlay on (overlay.jpg at the
+     photo's size); one frame through ``cli.recon.recon_fit`` with
+     ``--debug-viz`` (three stage snapshots; a second call skips it);
+     the small-config entry point on the card against the CPU; after every
+     other phase, the release encoder in f32 and bf16 (per call, and under
+     torch.profiler).
+  6. demo: ``cli.demo.run_demo`` at the same config on the example frame,
+     render size 512, field meshes at 128^3: s/image and its split, the
+     kernels' launches (K1 once per joint step), every artifact written and
+     the overlay at the photo's shape; ``hard_rasterize`` on the demo's
+     meshes and on a stand-in at the real face count (13,776 body faces
+     and a 2,048-face sphere) at 512^2 (per-call ms, peak memory; device
+     ms under
+     torch.profiler after every other phase) and at 256^2 on the card
+     against the CPU (equal face indices, bary difference).
+  7. the kernel table as one JSON line (launches counted through the
+     demo, else the entry point), then the result line.
 
 Needs a CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -67,7 +80,7 @@ NN_DIST_TOL = 5e-5
 COV_REL_TOL = 1e-5
 COV_GRAD_REL_TOL = 1e-5
 
-PHASES = ("kernels", "field", "fit", "recon")
+PHASES = ("kernels", "field", "fit", "recon", "demo")
 
 
 def log(*a):
@@ -810,6 +823,7 @@ def release_reconstruct(torch, dev, card, counters, tmp, precision="mixed"):
     and read back."""
     from chore_tpu_torch.api import Reconstructor
     from chore_tpu_torch.config import ChoreConfig
+    from chore_tpu_torch.data.imageio import read_bgr
     from chore_tpu_torch.utils.meshio import load_ply
 
     cfg = ChoreConfig(precision=precision)
@@ -863,32 +877,55 @@ def release_reconstruct(torch, dev, card, counters, tmp, precision="mixed"):
         raise SystemExit("recon: non-finite output")
     if out["smpl_verts"].shape != (1, 6890, 3):
         raise SystemExit(f"recon: smpl_verts {out['smpl_verts'].shape}")
+    t0 = time.perf_counter()
     stem = rec.save(out, os.path.join(tmp, f"result_{precision}"))[0]
+    save_s = time.perf_counter() - t0
     for name, vk in (("smpl.ply", "smpl_verts"), ("object.ply", "obj_verts")):
         v, _ = load_ply(os.path.join(stem, name))
         if not np.array_equal(v, out[vk][0]):
             raise SystemExit(f"recon: {name} does not load back")
+    overlay = read_bgr(os.path.join(stem, "overlay.jpg"))
+    photo = read_bgr(os.path.join(EXAMPLE_FRAME, "k1.color.jpg"))
+    if overlay.shape != photo.shape:
+        raise SystemExit(f"recon: overlay {overlay.shape}, photo "
+                         f"{photo.shape}")
+    log(f"  Reconstructor.save (plys + overlay.jpg {overlay.shape}, render "
+        f"512^2): {save_s:.4f} s [{card}]")
     fit_s = sum(summary[k]["total_s"] for k in (
         "encode", "generate_pclouds", "optimize_smpl", "silhouette_prep",
         "optimize_object"))
     return {"sec": sec, "fit_s": fit_s, "launches": counts,
             "joint_steps": joint_steps, "iters": iters,
-            "ms_per_step": per_step, "stages_ms": stages}
+            "ms_per_step": per_step, "stages_ms": stages, "save_s": save_s}
+
+
+MONITOR_FILES = ["00_pclouds.jpg", "01_smpl.jpg", "02_object.jpg"]
 
 
 def cli_one_frame(torch, dev, card, tmp):
     """``cli.recon.recon_fit`` over the one-frame example sequence at the
-    release config: s/frame; a second call skips the frame."""
+    release config with ``--debug-viz``: s/frame; the three stage
+    snapshots (front + side, 512 x 1024) and no losses.jsonl (the fit's
+    snapshots carry no losses, as in ``chore_tpu``); a second call skips
+    the frame."""
     from chore_tpu_torch.cli.recon import recon_fit
     from chore_tpu_torch.config import ChoreConfig
+    from chore_tpu_torch.data.imageio import read_bgr
 
     outpath = os.path.join(tmp, "recon_out")
+    viz = os.path.join(tmp, "debug_viz")
     kw = dict(obj_name="basketball", exp_root=os.path.join(tmp, "exp"),
               device=dev)
     t0 = time.perf_counter()
-    recon_fit(ChoreConfig(), EXAMPLE_SEQ, "smoke", outpath, **kw)
+    recon_fit(ChoreConfig(), EXAMPLE_SEQ, "smoke", outpath, debug_viz=viz,
+              **kw)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
+    if sorted(os.listdir(viz)) != MONITOR_FILES:
+        raise SystemExit(f"recon cli: --debug-viz wrote {os.listdir(viz)}")
+    for name in MONITOR_FILES:
+        if read_bgr(os.path.join(viz, name)).shape != (512, 1024, 3):
+            raise SystemExit(f"recon cli: bad snapshot {name}")
     done = os.path.join(outpath, "example_synth", "frame0000", "smoke")
     files = sorted(os.listdir(done))
     if files != ["k1.object.pkl", "k1.object.ply", "k1.smpl.pkl",
@@ -899,9 +936,9 @@ def cli_one_frame(torch, dev, card, tmp):
     if again.timer.summary() or os.stat(os.path.join(
             done, "k1.smpl.ply")).st_mtime_ns != before:
         raise SystemExit("recon cli: the second run did not skip the frame")
-    log(f"  cli.recon.recon_fit one frame (release config, model and "
-        f"template loading included): {sec:.4f} s/frame; second run skipped "
-        f"[{card}]")
+    log(f"  cli.recon.recon_fit one frame with --debug-viz (release "
+        f"config, model and template loading included): {sec:.4f} s/frame; "
+        f"snapshots {MONITOR_FILES}; second run skipped [{card}]")
     return sec
 
 
@@ -1016,8 +1053,6 @@ def run_recon(torch, dev, card, counters):
                                                  tmp, precision="float32")
         result["cli_s"] = cli_one_frame(torch, dev, card, tmp)
         entry_card_vs_cpu(torch, dev, tmp)
-        # last: torch.profiler runs here, and nothing timed comes after it
-        result.update(encoder_precisions(torch, dev, card))
     # what prepare decodes: the colour frame, and each mask as gray
     d = result["decode_ms"]
     host = (d["read_rgb/k1.color.jpg"] + d["read_gray/k1.person_mask.jpg"]
@@ -1027,6 +1062,180 @@ def run_recon(torch, dev, card, counters):
         f"reconstruction [{card}]")
     log(json.dumps({"recon": result, "card": card}))
     return result
+
+
+# --------------------------------------------------------------------- #
+# phase 6: the demo (cli.demo.run_demo) at the release config
+DEMO_FILES = ["human_field.ply", "human_pc.ply", "object.ply",
+              "object_field.ply", "object_pc.ply", "overlay.jpg", "side.jpg",
+              "smpl.ply"]
+DEMO_SPLIT = {"prep": ("demo_prep",), "fit": ("demo_fit",),
+              "field_meshes": ("field_meshes",),
+              "front_render": ("render_front",),
+              "side_render": ("render_side",),
+              "align_to_input": ("align_to_input",),
+              "jpeg_encode": ("jpeg_overlay", "jpeg_side"),
+              "ply_writes": ("ply_writes",)}
+# the z-buffer on the card against the CPU: the same f32 ops, so face
+# indices differ only where a pixel sits on an edge to f32 rounding
+RASTER_EQUAL_MIN = 0.999
+RASTER_BARY_TOL = 1e-4
+
+
+def project_scene(meshes):
+    """Meshes [(verts, faces)] as one vertex and face list, projected to NDC
+    by the demo's camera: (verts_ndc (1, V, 3), faces (F, 3) int64)."""
+    import torch
+
+    from chore_tpu_torch.ops.rasterizer import project_unit_k
+    from chore_tpu_torch.utils.render import kinect_unit_k
+
+    offsets = np.cumsum([0] + [len(v) for v, _ in meshes[:-1]])
+    verts = np.concatenate([v for v, _ in meshes], 0).astype(np.float32)
+    faces = np.concatenate([f + o for (_, f), o in zip(meshes, offsets)],
+                           0).astype(np.int64)
+    ndc = project_unit_k(torch.from_numpy(verts)[None],
+                         torch.from_numpy(kinect_unit_k())[None])
+    return ndc, torch.from_numpy(faces)
+
+
+def raster_scenes(frame_dir):
+    """The z-buffer's inputs, from the demo's plys: ``demo``, its own
+    front-render scene (the synthetic body's 6,888 faces and the 512-face
+    template); ``full_size``, a stand-in at the real face count: each body
+    face split in two at the midpoint of its first edge (13,776 faces,
+    SMPL-H's count) and a 2,048-face octasphere at the object's centre and
+    radius."""
+    from chore_tpu_torch.utils.meshio import load_ply, octasphere
+
+    sv, sf = load_ply(os.path.join(frame_dir, "smpl.ply"))
+    ov, of = load_ply(os.path.join(frame_dir, "object.ply"))
+    a, b, c = sf.T
+    m = len(sv) + np.arange(len(sf))
+    body = (np.concatenate([sv, (sv[a] + sv[b]) / 2]),
+            np.concatenate([np.stack([a, m, c], 1), np.stack([m, b, c], 1)]))
+    centre = ov.mean(0)
+    sphere = octasphere(radius=float(np.linalg.norm(ov - centre, axis=1)
+                                     .max()), center=centre, subdiv=4)
+    return {"demo": project_scene([(sv, sf), (ov, of)]),
+            "full_size": project_scene([body, sphere])}
+
+
+def time_hard_rasterize(torch, dev, card, frame_dir):
+    """``hard_rasterize`` on the demo's scene and on the full-size stand-in
+    (``raster_scenes``): per-call ms at 512^2 (events around back-to-back
+    calls; each call waits once for the device to pick the faces of each
+    band) and its peak memory; at 256^2 on the card against the CPU.
+    Returns the numbers and the 512^2 calls (their device time is profiled
+    last)."""
+    from chore_tpu_torch.ops.rasterizer import hard_rasterize
+
+    out, runs = {}, {}
+    for scene, (ndc, faces) in raster_scenes(frame_dir).items():
+        nd, fd = ndc.to(dev), faces.to(dev)
+        run = functools.partial(hard_rasterize, nd, fd, image_size=512)
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        fi = run()[0]
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        res = {"faces": int(faces.shape[0]), "covered": float(
+            (fi >= 0).float().mean()), "ms": cuda_ms(run, 10),
+            "peak_mib": peak / 2**20}
+        log(f"  hard_rasterize 512^2 x {res['faces']} faces ({scene}): per "
+            f"call {res['ms']:.3f} ms, peak {res['peak_mib']:.1f} MiB above "
+            f"its inputs, {100 * res['covered']:.1f}% of pixels covered "
+            f"[{card}]")
+        ci, _, cw = hard_rasterize(ndc, faces, image_size=256)
+        gi, _, gw = (x.cpu() for x in hard_rasterize(nd, fd, image_size=256))
+        eq = gi == ci
+        share = float(eq.float().mean())
+        dbary = float((gw - cw).abs()[eq].max())
+        res.update(card_vs_cpu_equal=share, card_vs_cpu_bary=dbary)
+        log(f"  hard_rasterize 256^2 card vs CPU ({scene}): "
+            f"{100 * share:.4f}% of face indices equal (min "
+            f"{100 * RASTER_EQUAL_MIN}%), max bary diff where equal "
+            f"{dbary:.3g} (tol {RASTER_BARY_TOL})")
+        if not (share >= RASTER_EQUAL_MIN and dbary <= RASTER_BARY_TOL):
+            raise SystemExit(f"demo: hard_rasterize on the card disagrees "
+                             f"with the CPU ({scene})")
+        out[scene], runs[scene] = res, run
+    return out, runs
+
+
+def profile_hard_rasterize(torch, runs, card):
+    """Device ms and kernel launches per 512^2 ``hard_rasterize`` call, per
+    scene (torch.profiler: kernel time only)."""
+    out = {}
+    for scene, run in runs.items():
+        dms, launches, top = encode_device_profile(torch, run, reps=5)
+        log(f"  hard_rasterize 512^2 ({scene}): device {dms:.3f} ms in "
+            f"{launches:.0f} kernel launches per call; top (ms, launches, "
+            f"kernel): {json.dumps(top)} [{card}]")
+        out[scene] = {"device_ms": dms, "launches": launches}
+    return out
+
+
+def run_demo_phase(torch, dev, card, counters):
+    """``run_demo`` at the default ChoreConfig (release "mixed"), render
+    512, field meshes at 128^3, on the example frame (empty checkpoint
+    root: seeded init): s/image and its split, launches of this run,
+    artifacts, overlay shape; then ``time_hard_rasterize``."""
+    import tempfile
+
+    from chore_tpu_torch.cli.demo import run_demo
+    from chore_tpu_torch.config import ChoreConfig
+    from chore_tpu_torch.data.imageio import read_bgr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "demo_out")
+        for d, k in counters.values():
+            d[k] = 0
+        t0 = time.perf_counter()
+        fitter = run_demo(ChoreConfig(), EXAMPLE_SEQ, "basketball",
+                          outpath=out_dir, render_size=512,
+                          field_mesh_res=128,
+                          exp_root=os.path.join(tmp, "experiments"),
+                          device=dev)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = {name: d[k] for name, (d, k) in counters.items()}
+        summary = fitter.timer.summary()
+        split = {k: sum(summary[n]["total_s"] for n in names)
+                 for k, names in DEMO_SPLIT.items()}
+        joint_steps = summary.get("joint_nn", {}).get("count", 0)
+        frame_dir = os.path.join(out_dir, "frame0000", "demo")
+        files = sorted(os.listdir(frame_dir))
+        if files != DEMO_FILES or not all(os.path.getsize(
+                os.path.join(frame_dir, f)) for f in files):
+            raise SystemExit(f"demo: wrote {files}")
+        overlay = read_bgr(os.path.join(frame_dir, "overlay.jpg"))
+        photo = read_bgr(os.path.join(EXAMPLE_FRAME, "k1.color.jpg"))
+        if overlay.shape != photo.shape:
+            raise SystemExit(f"demo: overlay {overlay.shape}, photo "
+                             f"{photo.shape}")
+        log(f"  run_demo (release mixed, render 512, field meshes 128^3): "
+            f"{sec:.4f} s/image, {sec - split['field_meshes']:.4f} without "
+            f"the field meshes [{card}]")
+        log(f"  split s: {json.dumps({k: round(v, 4) for k, v in split.items()})}")
+        log(f"  fit stages ms: {json.dumps({k: v['mean_ms'] for k, v in summary.items()})}")
+        log(f"  artifacts {files}; overlay {overlay.shape} = photo")
+        log(f"  kernel launches through the demo: {json.dumps(counts)} "
+            f"(joint steps: {joint_steps})")
+        if counts["nn_grouped"] != joint_steps:
+            raise SystemExit(f"demo: {counts['nn_grouped']} K1 launches for "
+                             f"{joint_steps} joint steps")
+        for name, n in counts.items():
+            if n <= 0:
+                raise SystemExit(f"demo: the demo never launched {name}")
+        raster, raster_calls = time_hard_rasterize(torch, dev, card,
+                                                   frame_dir)
+    result = {"sec": sec, "split_s": split, "launches": counts,
+              "joint_steps": joint_steps, "hard_rasterize": raster}
+    log(json.dumps({"demo": result, "card": card}))
+    return result, raster_calls
 
 
 # --------------------------------------------------------------------- #
@@ -1193,8 +1402,24 @@ def main(argv=None):
     if "recon" in phases:
         log("phase recon:")
         recon = run_recon(torch, dev, card, counters)
-        for name in kernels:  # the main path: the release entry point
+        for name in kernels:  # the release entry point
             kernels[name]["launches"] = recon["api"]["launches"][name]
+
+    if "demo" in phases:
+        log("phase demo:")
+        demo, raster_calls = run_demo_phase(torch, dev, card, counters)
+        for name in kernels:  # the main path: the demo
+            kernels[name]["launches"] = demo["launches"][name]
+
+    # last: the torch.profiler sessions (they slow what runs after them)
+    if "recon" in phases:
+        log("phase recon (profiled):")
+        log(json.dumps({"recon_encoder": encoder_precisions(torch, dev, card),
+                        "card": card}))
+    if "demo" in phases:
+        log("phase demo (profiled):")
+        log(json.dumps({"demo_hard_rasterize": profile_hard_rasterize(
+            torch, raster_calls, card), "card": card}))
 
     if "profile" in phases:
         log("phase profile:")

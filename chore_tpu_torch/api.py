@@ -1,14 +1,15 @@
 """One-call reconstruction API (counterpart of ``chore_tpu/api.py``).
 
-Wraps model loading, per-image preparation and fitting into one object:
+Wraps model loading, per-image preparation, fitting and rendering into one
+object:
 
     from chore_tpu_torch.api import Reconstructor
     rec = Reconstructor("chore-release", obj_name="basketball")
     out = rec.reconstruct("photo/k1.color.jpg")   # needs masks+mocap+kpts
-    rec.save(out, "result_dir")                   # smpl.ply + object.ply
+    rec.save(out, "result_dir")                   # plys + overlay
 
-Runs on the card unless ``device="cpu"``. Overlay rendering comes with the
-demo slice (``ROADMAP.md``), and data-parallel reconstruction with DDP.
+Runs on the card unless ``device="cpu"``; the overlay's z-buffer runs on
+the same device. Data-parallel reconstruction comes with DDP.
 """
 from __future__ import annotations
 
@@ -25,14 +26,11 @@ from chore_tpu_torch.cli.common import (
 )
 from chore_tpu_torch.config import ChoreConfig, load_config
 from chore_tpu_torch.data import TestImagePrep, collate
+from chore_tpu_torch.data.imageio import imwrite, read_bgr_or_none
 from chore_tpu_torch.recon import losses as L
 from chore_tpu_torch.recon.fitter import ReconFitter
 from chore_tpu_torch.utils.meshio import save_ply
-
-OVERLAY_NOT_PORTED = (
-    "overlay rendering is not ported yet: it comes with the demo/overlay "
-    "slice in ROADMAP.md (Queue 1), which also needs an image writer")
-
+from chore_tpu_torch.utils.render import align_to_input, render_meshes
 
 def _numpy(tree):
     if torch.is_tensor(tree):
@@ -98,14 +96,15 @@ class Reconstructor:
 
     # ------------------------------------------------------------------ #
     def reconstruct(self, rgb_files, use_silhouette=True, generator=None,
-                    draws=None):
+                    draws=None, monitor=None):
         """Fit one image or a list of images (one batch).
 
         Each ``rgb_file`` needs the reference's sidecar files next to it
         (person/object masks, openpose ``.color.json``, FrankMocap
         ``.mocap.{ply,json}``). ``generator``: a torch.Generator on the
         fitter's device for the fit's random draws (seed 0 if None);
-        ``draws``: injected point-generation draws (tests).
+        ``draws``: injected point-generation draws (tests); ``monitor``: a
+        ``utils.viewer.FitMonitor`` that snapshots each stage of the fit.
 
         Returns a dict of numpy arrays (batch first, aligned with the
         input): smpl_verts (B,V,3), smpl_faces, obj_verts (B,Vt,3),
@@ -119,7 +118,7 @@ class Reconstructor:
         result = self.fitter.fit_batch(
             batch["images"], batch["crop_center"], batch["mocap_pose"],
             batch["mocap_betas"], batch["kpts"], generator=generator,
-            use_silhouette=use_silhouette, draws=draws,
+            use_silhouette=use_silhouette, draws=draws, monitor=monitor,
         )
         smpl_verts = self.smplh.verts(result["smpl_params"])
         obj_verts = self.fitter.transform_obj(
@@ -138,11 +137,11 @@ class Reconstructor:
         }
 
     # ------------------------------------------------------------------ #
-    def save(self, out, result_dir, overlay=False):
+    def save(self, out, result_dir, overlay=True, render_size=512):
         """Write frameNNNN/smpl.ply and object.ply for every frame of a
-        ``reconstruct`` result; returns the frame directories."""
-        if overlay:
-            raise NotImplementedError(OVERLAY_NOT_PORTED)
+        ``reconstruct`` result, and overlay.jpg (the meshes rendered at
+        ``render_size`` and pasted onto the photo) when ``overlay`` and the
+        photo is readable; returns the frame directories."""
         os.makedirs(result_dir, exist_ok=True)
         written = []
         for i in range(out["smpl_verts"].shape[0]):
@@ -152,5 +151,18 @@ class Reconstructor:
                      out["smpl_faces"])
             save_ply(os.path.join(stem, "object.ply"), out["obj_verts"][i],
                      out["obj_faces"])
+            orig = (read_bgr_or_none(str(out["paths"][i])) if overlay
+                    else None)
+            if orig is not None:
+                meshes = [(out["smpl_verts"][i], out["smpl_faces"]),
+                          (out["obj_verts"][i], out["obj_faces"])]
+                colors = [(0.2, 0.7, 0.3), (0.8, 0.3, 0.2)]
+                front, mask = render_meshes(meshes, colors,
+                                            image_size=render_size,
+                                            device=self.device)
+                ov = align_to_input(front[..., ::-1], mask, orig,
+                                    out["crop_info"][i],
+                                    use_mean_center=self.coco, alpha=0.85)
+                imwrite(os.path.join(stem, "overlay.jpg"), ov)
             written.append(stem)
         return written

@@ -4,11 +4,13 @@ sequence, in sequence order, with resume support.
 
 Usage:
   python -m chore_tpu_torch.cli.recon <exp_name> -s SEQ -sn SAVE_NAME \\
-      [-o RECON_DIR] [--coco] [-fs START -fe END] [--device cpu]
+      [-o RECON_DIR] [--coco] [-fs START -fe END] [--debug-viz DIR] \\
+      [--device cpu]
 
-``--fused`` (a single-program TPU pipeline) is not ported by design;
-``--data-parallel`` and ``--debug-viz`` come with later slices of the
-port. Each exits with an error that says so.
+``--debug-viz DIR`` writes a ``utils.viewer.FitMonitor`` snapshot of each
+fit stage into DIR. ``--fused`` (a single-program TPU pipeline) is not
+ported by design; ``--data-parallel`` comes with a later slice of the port.
+Each exits with an error that says so.
 """
 from __future__ import annotations
 
@@ -31,14 +33,13 @@ from chore_tpu_torch.recon import losses as L
 from chore_tpu_torch.recon.fitter import ReconFitter
 from chore_tpu_torch.recon.templates import is_done, save_outputs
 from chore_tpu_torch.smpl.model import pack_betas, pack_pose
+from chore_tpu_torch.utils.viewer import FitMonitor
 
 NOT_PORTED = {
     "fused": "--fused is not ported by design: the port's fit is the staged "
-             "pipeline (ROADMAP.md Queue 1 item 1)",
+             "pipeline (ROADMAP.md Queue 1, \"Not ported, by design\")",
     "data_parallel": "--data-parallel is not ported yet: data-parallel "
                      "reconstruction comes with the DDP slice (ROADMAP.md)",
-    "debug_viz": "--debug-viz is not ported yet: the viewer comes with the "
-                 "demo/overlay slice (ROADMAP.md)",
 }
 
 
@@ -46,12 +47,13 @@ def recon_fit(cfg: ChoreConfig, seq_folder, save_name, outpath="recon_out",
               coco=False, obj_name=None, start=0, end=None, batch_size=1,
               redo=False, tid=1, use_silhouette=True,
               exp_root="experiments", fit_cfg=None, sampler_cfg=None,
-              offscreen_guard=False, device=None):
+              offscreen_guard=False, device=None, debug_viz=None):
     """fit_cfg/sampler_cfg override the release schedule (quick runs,
     tests); exp_root relocates the checkpoint search; offscreen_guard
     enables the sil-phase off-ROI penalty (FitConfig.offscreen_guard,
-    recommended with --coco); device: the card unless "cpu". Returns the
-    fitter (its timer holds the per-stage times)."""
+    recommended with --coco); device: the card unless "cpu"; debug_viz
+    writes FitMonitor snapshots of every fit stage into that directory.
+    Returns the fitter (its timer holds the per-stage times)."""
     info_file = os.path.join(seq_folder, "info.json")
     if os.path.isfile(info_file):
         info = SeqInfo(seq_folder)
@@ -79,6 +81,7 @@ def recon_fit(cfg: ChoreConfig, seq_folder, save_name, outpath="recon_out",
                                           check_occlusion=False)
     files = files[start:end if end is not None else len(files)]
     print(f"{len(files)} test frames")
+    monitor = FitMonitor(debug_viz) if debug_viz else None
     for b0 in range(0, len(files), batch_size):
         paths = files[b0:b0 + batch_size]
         if not redo and is_done(outpath, paths, save_name, tid):
@@ -98,7 +101,7 @@ def recon_fit(cfg: ChoreConfig, seq_folder, save_name, outpath="recon_out",
         result = fitter.fit_batch(
             batch["images"], batch["crop_center"], batch["mocap_pose"],
             batch["mocap_betas"], batch["kpts"],
-            use_silhouette=use_silhouette,
+            use_silhouette=use_silhouette, monitor=monitor,
         )
         sp, op = result["smpl_params"], result["obj_params"]
         host = lambda x: x.detach().cpu().numpy()  # noqa: E731
@@ -130,8 +133,8 @@ def main(argv=None):
                         help="in-the-wild weights + mean-centre restaging")
     parser.add_argument("--data-parallel", action="store_true",
                         help="not ported yet (DDP slice)")
-    parser.add_argument("--debug-viz", default=None,
-                        help="not ported yet (demo/overlay slice)")
+    parser.add_argument("--debug-viz", default=None, metavar="DIR",
+                        help="write a snapshot of each fit stage into DIR")
     parser.add_argument("--fused", action="store_true",
                         help="not ported by design (staged pipeline only)")
     parser.add_argument("--offscreen-guard", action="store_true",
@@ -154,7 +157,8 @@ def main(argv=None):
               coco=args.coco, obj_name=args.obj_name, start=args.start,
               end=args.end, batch_size=args.batch_size, redo=args.redo,
               tid=args.tid, exp_root=args.exp_root,
-              offscreen_guard=args.offscreen_guard, device=args.device)
+              offscreen_guard=args.offscreen_guard, device=args.device,
+              debug_viz=args.debug_viz)
 
 
 if __name__ == "__main__":

@@ -4,8 +4,9 @@ Counterpart of ``chore_tpu/data/image_ops.py``: mask loading with the
 reference's file-name fallbacks, the bbox of the mask union, centre crop
 with zero padding, the aspect-checked resize and the 5-channel RGBM3
 composition. Files are read through ``data/imageio.py``; ``resize``
-reproduces ``cv2.resize(..., INTER_LINEAR)`` bit for bit on uint8 input
-(OpenCV's 11-bit fixed point) and to float rounding on float input.
+reproduces ``cv2.resize(..., INTER_LINEAR)`` bit for bit on uint8 and
+float32 input (OpenCV's 11-bit fixed point; its float kernels), and to
+float rounding on float64.
 """
 from __future__ import annotations
 
@@ -108,19 +109,24 @@ def resize_linear(img, size):
     uint8 and float images of 1 or more channels:
 
     * the same size: a copy;
-    * an exact 2x downscale: OpenCV's INTER_AREA fast path (2x2 mean,
-      rounded for uint8), which it switches to there;
+    * uint8 and float64, an exact 2x downscale: OpenCV's INTER_AREA fast
+      path (2x2 mean, rounded for uint8), which it switches to there;
     * else half-pixel bilinear. Horizontally the source index is clamped
       to [0, w - 1] with the weight moved onto the kept sample; vertically
       the two rows are clamped and keep their weights. uint8 runs OpenCV's
       fixed point: 11-bit weights round(w * 2048) (float32 w), integer
       horizontal sums, then ((b0 * (S0 >> 4)) >> 16) +
-      ((b1 * (S1 >> 4)) >> 16) + 2) >> 2; float runs the same taps with
-      float64 weights in float64."""
+      ((b1 * (S1 >> 4)) >> 16) + 2) >> 2; float64 runs the same taps with
+      float64 weights in float64; float32 takes float64 taps, rounds the
+      fraction f to float32 and interpolates as OpenCV's float kernels
+      do, a + (b - a) * f with one rounding after the multiply-add, along
+      rows, then columns."""
     out_w, out_h = int(size[0]), int(size[1])
     h, w = img.shape[:2]
     if (out_w, out_h) == (w, h):
         return img.copy()
+    if img.dtype == np.float32:
+        return _resize_linear_f32(img, out_w, out_h)
     u8 = img.dtype == np.uint8
     if (w == 2 * out_w and h == 2 * out_h):
         x = img.astype(np.int32 if u8 else np.float64)
@@ -158,6 +164,32 @@ def resize_linear(img, size):
     rows[:, hi] = x[:, sx[hi]]
     by0, by1 = wy0.reshape(-1, 1, *extra), fy.reshape(-1, 1, *extra)
     return (rows[sy0] * by0 + rows[sy1] * by1).astype(img.dtype)
+
+
+def _clamped_taps(n_in, n_out):
+    """float64 taps with OpenCV's edge clamping -> (index, index + 1
+    clamped, float32 fraction)."""
+    s, f = _linear_taps(n_in, n_out, np.float64)
+    f[s < 0], s[s < 0] = 0.0, 0
+    hi = s >= n_in - 1
+    f[hi], s[hi] = 0.0, n_in - 1
+    return s, np.minimum(s + 1, n_in - 1), f.astype(np.float32)
+
+
+def _lerp(a, b, f):
+    """a + (b - a) * f for float32 a, b, f as a fused multiply-add: the
+    product is exact in float64, the sum is rounded to float32 from
+    float64."""
+    return ((b - a).astype(np.float64) * f + a).astype(np.float32)
+
+
+def _resize_linear_f32(img, out_w, out_h):
+    h, w = img.shape[:2]
+    extra = (1,) * (img.ndim - 2)
+    sx0, sx1, fx = _clamped_taps(w, out_w)
+    sy0, sy1, fy = _clamped_taps(h, out_h)
+    rows = _lerp(img[:, sx0], img[:, sx1], fx.reshape(1, -1, *extra))
+    return _lerp(rows[sy0], rows[sy1], fy.reshape(-1, 1, *extra))
 
 
 def compose_rgbm3(obj_mask, person_mask, rgb):

@@ -352,7 +352,7 @@ class ReconFitter:
     @torch.no_grad()
     def fit_batch(self, images, crop_center, mocap_poses, mocap_betas,
                   kpts2d, generator=None, use_silhouette=True,
-                  block_per_stage=False, draws=None):
+                  block_per_stage=False, draws=None, monitor=None):
         """Full per-batch reconstruction.
 
         Args:
@@ -368,6 +368,10 @@ class ReconFitter:
           block_per_stage: synchronize the card after each stage, so
             ``timer.summary()`` holds true per-stage wall times.
           draws: optional injected point-generation draws (tests).
+          monitor: optional utils.viewer.FitMonitor; snapshots frame 0's
+            point clouds after generation, its SMPL mesh after the SMPL
+            chain, SMPL and object after the object chain (rendered on the
+            fitter's device).
 
         Returns dict with smpl params, object params, obj_R, the generated
         point clouds, the scale init, and the iterations run per phase.
@@ -399,6 +403,11 @@ class ReconFitter:
             pc = self.generator.generate_from_feats(
                 feats, tmpx, crop_center, generator, draws)
             sync()
+        if monitor is not None:
+            monitor.snapshot("pclouds", pclouds={
+                "human": host(pc["human"]["points"][0]),
+                "object": host(pc["object"]["points"][0]),
+            }, device=dev)
 
         human_t = pc["human"]["centers"][:, :3].clone()
         human_t[:, 2] = self.cfg.z0
@@ -407,6 +416,11 @@ class ReconFitter:
                 feats, tmpx, crop_center, f32(mocap_poses), f32(mocap_betas),
                 human_t, f32(kpts2d), generator)
             sync()
+        if monitor is not None:
+            monitor.snapshot("smpl", meshes=[(
+                host(self.smplh.verts(smpl_params))[0],
+                np.asarray(self.smplh.faces), monitor.SMPL_COLOR)],
+                device=dev)
         sil_data = None
         if use_silhouette:
             with self.timer.phase("silhouette_prep"):
@@ -424,6 +438,14 @@ class ReconFitter:
                 pc["object"]["centers"][:, 3:], pc["object"]["pca_axis"],
                 human_t, scale, generator, sil_data)
             sync()
+        if monitor is not None:
+            monitor.snapshot("object", meshes=[
+                (host(self.smplh.verts(smpl_params))[0],
+                 np.asarray(self.smplh.faces), monitor.SMPL_COLOR),
+                (host(self.transform_obj(
+                    obj_params, points=self.template_verts))[0],
+                 self.template_faces, monitor.OBJ_COLOR),
+            ], device=dev)
         out = {
             "smpl_params": smpl_params,
             "obj_params": obj_params,

@@ -44,6 +44,20 @@ BEHAVE_WEIGHTS = {
     "offscreen": 10.0**2,
 }
 
+# in-the-wild variant (``Reconstructor(coco=True)``, ``cli.recon --coco``,
+# the demo): stronger pose/contact/keypoint regularization
+COCO_WEIGHTS = dict(
+    BEHAVE_WEIGHTS,
+    j2d=0.8**2,
+    object=90.0**2,
+    contact=150.0**2,
+    scale=2.0**2,
+    pinit=10.0**2,
+    ocent=30.0**2,
+    mask=0.3**2,
+    collide=15.0**2,
+)
+
 
 def weighted_sum(loss_dict, weights, decay):
     """sum_k w_k * loss_k / (1 + decay)."""

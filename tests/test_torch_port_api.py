@@ -2,7 +2,8 @@
 ``Reconstructor.reconstruct(use_silhouette=False)`` of ``chore_tpu`` and
 of ``chore_tpu_torch`` (CPU) on the committed example frame, both loading
 the same ``chore_tpu`` checkpoint, with the same draws and the fixed SO(3)
-jitter (``test_torch_port_util.api_pair``); then ``save``. The sil run has
+jitter (``test_torch_port_util.api_pair``); then ``save``, whose default
+overlay is held to ``chore_tpu``'s overlay of the same result. The sil run has
 its own file (``test_torch_port_api_sil.py``): a JAX fit is the file's
 budget."""
 import os
@@ -31,7 +32,7 @@ def test_save_writes_plys_that_load_back(pair, tmp_path):
     from chore_tpu_torch.utils.meshio import load_ply
 
     _, out_t, rec, _ = pair
-    dirs = rec.save(out_t, str(tmp_path / "res"))
+    dirs = rec.save(out_t, str(tmp_path / "res"), overlay=False)
     assert dirs == [str(tmp_path / "res" / "frame0000")]
     assert sorted(os.listdir(dirs[0])) == ["object.ply", "smpl.ply"]
     for name, vk, fk in (("smpl.ply", "smpl_verts", "smpl_faces"),
@@ -41,11 +42,52 @@ def test_save_writes_plys_that_load_back(pair, tmp_path):
         np.testing.assert_array_equal(f, out_t[fk])
 
 
-def test_overlay_raises_before_writing(pair, tmp_path):
+def test_save_writes_overlay_by_default(pair, tmp_path):
+    """``save`` at its defaults (overlay on, render 512) writes overlay.jpg
+    at the photo's size. Against ``chore_tpu``'s own overlay of the same
+    result dict (its ``render_meshes`` + ``align_to_input`` with cv2 inside
+    + ``cv2.imwrite``, as its ``save`` does): both files decoded by PIL are
+    equal (the z-buffers' barycentrics differ by ~1e-6, which here moves
+    no pixel's colour by a level); a missing photo skips the overlay, as
+    ``cv2.imread``'s None does."""
+    import cv2
+    from PIL import Image
+
+    from chore_tpu.utils.render import align_to_input, render_meshes
+
     _, out_t, rec, _ = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rec.save(out_t, str(tmp_path / "ov"), overlay=True)
-    assert not os.path.exists(tmp_path / "ov")
+    stem = rec.save(out_t, str(tmp_path / "ov"))[0]
+    assert sorted(os.listdir(stem)) == ["object.ply", "overlay.jpg",
+                                        "smpl.ply"]
+    got = np.array(Image.open(os.path.join(stem, "overlay.jpg")))
+    photo = cv2.imread(out_t["paths"][0])
+    assert got.shape == photo.shape
+    meshes = [(out_t["smpl_verts"][0], out_t["smpl_faces"]),
+              (out_t["obj_verts"][0], out_t["obj_faces"])]
+    front, mask = render_meshes(meshes, [(0.2, 0.7, 0.3), (0.8, 0.3, 0.2)],
+                                image_size=512)
+    ov = align_to_input(front[..., ::-1], mask, photo, out_t["crop_info"][0],
+                        use_mean_center=False, alpha=0.85)
+    cv2.imwrite(str(tmp_path / "ref.jpg"), ov)
+    want = np.array(Image.open(tmp_path / "ref.jpg"))
+    np.testing.assert_array_equal(got, want)
+    assert (got != cv2.imread(out_t["paths"][0])[..., ::-1]).any()
+    missing = dict(out_t, paths=[str(tmp_path / "gone.jpg")])
+    stem = rec.save(missing, str(tmp_path / "no_photo"))[0]
+    assert sorted(os.listdir(stem)) == ["object.ply", "smpl.ply"]
+
+
+def test_save_raises_on_a_photo_it_cannot_read(pair, tmp_path):
+    """A photo that cv2 reads and the port refuses (here an arithmetic-coded
+    JPEG) raises from ``save`` rather than skip the overlay, as a missing
+    one does."""
+    _, out_t, rec, _ = pair
+    data = bytearray(open(out_t["paths"][0], "rb").read())
+    data[data.index(b"\xff\xc0") + 1] = 0xC9  # SOF9: arithmetic-coded
+    photo = tmp_path / "arith.jpg"
+    photo.write_bytes(bytes(data))
+    with pytest.raises(ValueError, match="arithmetic-coded"):
+        rec.save(dict(out_t, paths=[str(photo)]), str(tmp_path / "res"))
 
 
 def test_no_card_raises(monkeypatch, tmp_path):

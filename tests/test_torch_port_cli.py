@@ -2,7 +2,7 @@
 one-frame sequence (the committed example) writes the same file set and
 the same pickle keys (and shapes) with the same checkpoint; a second run
 skips the frame; the flags the port does not carry fail with their
-reason."""
+reason (``--debug-viz`` is ported: ``test_torch_port_viewer_demo.py``)."""
 import os
 import pickle
 
@@ -81,7 +81,6 @@ def test_second_run_skips(runs, capsys):
 @pytest.mark.parametrize("flag,why", [
     (["--fused"], "not ported by design"),
     (["--data-parallel"], "DDP"),
-    (["--debug-viz", "d"], "demo/overlay"),
 ])
 def test_flags_not_ported_fail(flag, why, capsys):
     from chore_tpu_torch.cli.recon import main

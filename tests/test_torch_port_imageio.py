@@ -102,26 +102,31 @@ def test_generated_png(tmp_path, mode, size):
 
 
 def test_unsupported_files_raise(tmp_path):
+    """What stays refused: 12-bit, lossless, hierarchical and
+    arithmetic-coded JPEGs (a baseline file with its frame header
+    rewritten: nothing here writes them), and files that are neither JPEG
+    nor PNG. Progressive JPEGs, interlaced and palette PNGs now decode
+    (``test_torch_port_imageio_formats.py``)."""
     from PIL import Image
 
     a = _pixels(20, 20, 3, False, seed=0)
-    prog = str(tmp_path / "prog.jpg")
-    Image.fromarray(a).save(prog, progressive=True)
-    with pytest.raises(ValueError, match="progressive.*prog.jpg|prog.jpg.*"
-                                         "progressive"):
-        read_rgb(prog)
-    inter = tmp_path / "inter.png"  # PIL writes no Adam7: flag it in IHDR
-    Image.fromarray(a).save(str(inter))
-    data = bytearray(inter.read_bytes())
-    data[8 + 8 + 12] = 1  # signature, IHDR length+type, w h depth type...
-    inter.write_bytes(bytes(data))
-    inter = str(inter)
-    with pytest.raises(ValueError, match="interlaced"):
-        read_gray(inter)
-    pal = str(tmp_path / "pal.png")
-    Image.fromarray(a).convert("P").save(pal)
-    with pytest.raises(ValueError, match="colour type 3"):
-        read_rgb(pal)
+    base = tmp_path / "base.jpg"
+    Image.fromarray(a).save(str(base))
+    data = base.read_bytes()
+    sof = data.index(b"\xff\xc0")
+    for k, (patch, why) in enumerate([
+            ({sof + 4: 12}, "12-bit"), ({sof + 1: 0xC3}, "lossless"),
+            ({sof + 1: 0xC7}, "hierarchical"),
+            ({sof + 1: 0xC9}, "arithmetic-coded")]):
+        bad = bytearray(data)
+        for at, value in patch.items():
+            bad[at] = value
+        path = tmp_path / f"bad{k}.jpg"
+        path.write_bytes(bytes(bad))
+        with pytest.raises(ValueError, match=why):
+            read_rgb(str(path))
+        with pytest.raises(ValueError, match=why):
+            read_gray(str(path))
     other = tmp_path / "x.jpg"
     other.write_bytes(b"GIF89a....")
     with pytest.raises(ValueError, match="neither a JPEG nor a PNG"):
