@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, as the check runs it
     python3 chip_smoke.py --phases kernels
     python3 chip_smoke.py --phases profile --out DIR  # profiler breakdown
+    python3 chip_smoke.py --phases loader  # cli.recon's prep loaders
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. card name and power limit, torch/CUDA versions; build every kernel
@@ -15,8 +16,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      Python calls, dispatch included) and on the device (100 calls captured
      in a CUDA graph, its replay timed). K1 is checked and timed at the
      fit's joint step (its three problems in one multi call, and each
-     alone), the evaluation Chamfer (10,000 x 10,000, both directions) and
-     the preprocessing's label transfer (53,125 x 6,890); K2/K3 at 128,
+     alone), the evaluation Chamfer (10,000 x 10,000, both directions, and
+     the evaluator's per-frame call: SMPL and object both ways, four
+     problems in one launch) and the preprocessing's label transfer
+     (53,125 x 6,890); K2/K3 at 128,
      512, 1,000, 2,048, 2,500 and 8,192 faces.
   3. field: the release-width CHORE field (f32, seeded random weights):
      encode 1x512^2x5, then query 50k points.
@@ -47,8 +50,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ms under
      torch.profiler after every other phase) and at 256^2 on the card
      against the CPU (equal face indices, bary difference).
-  7. the kernel table as one JSON line (launches counted through the
-     demo, else the entry point), then the result line.
+  7. eval: a synthetic BEHAVE sequence written with the port's writers
+     (8 frames, two kinects with calibration, 16-bit depth, the posed
+     synthetic SMPL-H at 13,776 faces and a 2,048-face object as GT, the
+     reconstruction the GT under a known similarity plus noise);
+     ``ReconEvaluator.eval_seqs`` on the card at sample_num 10,000:
+     s/frame and its split (IO and sampling, Procrustes, Chamfer), K1
+     launches = frames evaluated, card against a float64 oracle and
+     against the CPU, the moved reconstruction's errors against the
+     unmoved one's; then ``python -m chore_tpu_torch.cli.evaluate``.
+  8. preprocess: ``process_scale_frame`` on one frame and kinect at the
+     release settings with the native and the device backend: s/frame, K1
+     launches, peak memory, the two agreeing (points bitwise, UDF, labels
+     but near-ties); the device backend on the card against the CPU at a
+     small size; then ``cli.preprocess.main`` at its defaults over the
+     sequence on the card (the device backend: K1 six times a frame).
+  9. the kernel table as one JSON line (launches counted through the
+     demo, else the entry point; ``launches_by_path`` holds every path's
+     count), then the result line.
+
+Opt-in phases: ``profile`` (where the fit's time goes, torch.profiler)
+and ``loader`` (``recon_fit`` over an 8-frame sequence with the serial prep
+and with its 4-worker ``DataLoader``: s/frame of the frame loop, model
+loading excluded).
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -80,7 +104,9 @@ NN_DIST_TOL = 5e-5
 COV_REL_TOL = 1e-5
 COV_GRAD_REL_TOL = 1e-5
 
-PHASES = ("kernels", "field", "fit", "recon", "demo")
+PHASES = ("kernels", "field", "fit", "recon", "demo", "eval", "preprocess")
+OPT_IN = ("profile", "loader")
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(*a):
@@ -180,6 +206,10 @@ def nn_cases(torch, dev):
     p, r = cloud(1, 10000), cloud(1, 10000, 0.25)
     add("eval_p2r", p, r)
     add("eval_r2p", r, p)
+    # the evaluator's per-frame call: the object's pair too (one launch)
+    po, ro = cloud(1, 10000, 0.15), cloud(1, 10000, 0.17)
+    add("eval_obj_p2r", po, ro)
+    add("eval_obj_r2p", ro, po)
     add("label_transfer", cloud(1, 53125, 0.35), h)
     # edge cases
     x, y = cloud(1, 300), cloud(1, 200)
@@ -209,6 +239,7 @@ NN_TIMED = {
     "contact_o2h": ("contact_o2h",),
     "collision_o2h": ("collision_o2h",),
     "eval_chamfer_10k": ("eval_p2r", "eval_r2p"),
+    "eval_frame": ("eval_p2r", "eval_r2p", "eval_obj_p2r", "eval_obj_r2p"),
     "label_transfer_53k": ("label_transfer",),
     "batch2": ("batch2",),
 }
@@ -781,8 +812,8 @@ def run_fit(torch, dev, card, counters):
 # --------------------------------------------------------------------- #
 # phase 5: the entry points (api.Reconstructor, cli.recon) at the release
 # "mixed" precision config, on the committed example frame
-EXAMPLE_SEQ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "chore_tpu_torch", "assets", "example_synth")
+EXAMPLE_SEQ = os.path.join(HERE, "chore_tpu_torch", "assets",
+                           "example_synth")
 EXAMPLE_FRAME = os.path.join(EXAMPLE_SEQ, "frame0000")
 ENTRY_TOL = 1e-3  # card vs CPU at the entry point, f32, relative
 
@@ -940,6 +971,83 @@ def cli_one_frame(torch, dev, card, tmp):
         f"config, model and template loading included): {sec:.4f} s/frame; "
         f"snapshots {MONITOR_FILES}; second run skipped [{card}]")
     return sec
+
+
+class SerialLoader:
+    """The prep path before the loader: each batch prepared in the fitting
+    thread, in order (``DataLoader``'s signature, no workers)."""
+
+    def __init__(self, dataset, batch_size, **_):
+        self.dataset, self.batch_size = dataset, batch_size
+
+    def __iter__(self):
+        from chore_tpu_torch.data import collate
+
+        n = len(self.dataset)
+        for b in range(0, n, self.batch_size):
+            yield collate([self.dataset[i] for i in
+                           range(b, min(b + self.batch_size, n))])
+
+
+LOADER_FRAMES = 8
+
+
+def loader_comparison(torch, dev, card):
+    """``cli.recon.recon_fit`` over an 8-frame sequence (the example frame
+    copied) at the release config, with the serial prep and with its
+    4-worker ``DataLoader``, in the order serial, loader, loader, serial
+    (drift within the call shows), after a one-frame warm-up run (the
+    process's first fits pay one-time costs). Each: s/frame of the frame
+    loop, from its first batch request to its end (model and template
+    loading excluded). Returns {mode: [s/frame, ...]}."""
+    import shutil
+    import tempfile
+
+    import chore_tpu_torch.cli.recon as crecon
+    from chore_tpu_torch.config import ChoreConfig
+
+    loader = crecon.DataLoader
+    out = {}
+
+    class TimedLoader:
+        """The loop's loader, timed from its first request to its end."""
+
+        def __init__(self, *a, **kw):
+            self.inner = (loader if mode == "loader" else SerialLoader)(
+                *a, **kw)
+
+        def __iter__(self):
+            t0 = time.perf_counter()
+            yield from self.inner
+            torch.cuda.synchronize()
+            out.setdefault(mode, []).append(
+                (time.perf_counter() - t0) / LOADER_FRAMES)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = os.path.join(tmp, "frames")
+        for k in range(LOADER_FRAMES):
+            shutil.copytree(EXAMPLE_FRAME, os.path.join(seq, f"frame{k:04d}"))
+        try:
+            crecon.DataLoader = TimedLoader
+            for run, mode in enumerate(("warm-up", "serial", "loader",
+                                        "loader", "serial")):
+                frames = 1 if mode == "warm-up" else LOADER_FRAMES
+                out_dir = os.path.join(tmp, f"out{run}")
+                crecon.recon_fit(ChoreConfig(), seq, "loader", out_dir,
+                                 obj_name="basketball", end=frames,
+                                 exp_root=os.path.join(tmp, "exp"),
+                                 device=dev)
+                done = os.listdir(os.path.join(out_dir, "frames"))
+                if len(done) != frames:
+                    raise SystemExit(f"recon loader {mode}: wrote {done}")
+        finally:
+            crecon.DataLoader = loader
+    out.pop("warm-up")
+    log(f"  cli.recon.recon_fit over {LOADER_FRAMES} frames (release "
+        f"config), s/frame of the frame loop by prep loader: "
+        f"{json.dumps({k: [round(x, 4) for x in v] for k, v in out.items()})}"
+        f" [{card}]")
+    return out
 
 
 def entry_card_vs_cpu(torch, dev, tmp):
@@ -1239,6 +1347,433 @@ def run_demo_phase(torch, dev, card, counters):
 
 
 # --------------------------------------------------------------------- #
+# phase 7: evaluation, and phase 8: GT preprocessing, on a synthetic
+# BEHAVE sequence written with the port's own writers (no cv2 on the card's
+# machine)
+EVAL_FRAMES = 8
+EVAL_SAMPLES = 10000  # the evaluator's default sample_num
+EVAL_REL_TOL = 1e-5   # card vs CPU and vs a float64 oracle, per frame
+# the moved reconstruction's errors against the unmoved one's, per frame,
+# metres: each mesh is sampled anew after the transform, and the sampler's
+# float32 areas and positions round differently, so a few of the 10,000
+# samples land elsewhere
+EVAL_MOVED_TOL = 1e-5
+PREP_KW = dict(sample_num=100000, sigmas=(0.08, 0.02, 0.003),
+               ratios=(0.01, 0.49, 0.5), grid_ratio=0.01)  # release
+PREP_UDF_TOL = 1e-5   # native vs device backend, metres
+PREP_CARD_TOL = 1e-6  # device backend, card vs CPU, metres
+# the reconstruction: the GT under this similarity transform, plus noise
+RECON_SCALE, RECON_ANGLE, RECON_T = 1.1, 0.3, (0.2, -0.1, 0.3)
+
+
+def _rot(axis, angle):
+    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(angle) * k + (1 - np.cos(angle)) * k @ k
+
+
+def write_behave_seq(torch, root):
+    """A BEHAVE sequence of EVAL_FRAMES frames and two kinects, with
+    reconstructions, written by the port's writers: per frame the posed
+    synthetic SMPL-H (6,890 vertices; each of its 6,888 faces also with the
+    reversed winding: 13,776 faces, SMPL-H's count, over the same surface)
+    and a 2,048-face octasphere as GT fits; k0/k1 colour JPEGs (2,048 x
+    1,536) and 16-bit depth PNGs (640 x 576); k1 object masks at a
+    visible/full ratio of ~0.74; calibration (intrinsics, point-cloud
+    tables, poses). Reconstructions ``moved`` (the GT under RECON_SCALE,
+    RECON_ANGLE and RECON_T, plus 2 mm noise) and ``still`` (the same
+    noise, no transform). Returns (seq, {variant: recon root})."""
+    import json
+
+    from chore_tpu_torch.data.imageio import encode_jpeg, encode_png
+    from chore_tpu_torch.smpl import SMPLH, synthetic_smplh
+    from chore_tpu_torch.smpl.model import init_params
+    from chore_tpu_torch.utils.meshio import octasphere, save_ply
+
+    seq = os.path.join(root, "Date03_Sub04_boxmedium")
+    calib = os.path.join(root, "calibs")
+    info = {"cat": "boxmedium", "gender": "male", "kinects": [0, 1],
+            "config": "../calibs/config", "intrinsic": "../calibs/intrinsics",
+            "empty": None}
+    os.makedirs(seq)
+    with open(os.path.join(seq, "info.json"), "w") as f:
+        json.dump(info, f)
+    ys, xs = np.mgrid[0:576, 0:640]
+    for k in (0, 1):
+        d = os.path.join(calib, "intrinsics", str(k))
+        os.makedirs(d)
+        with open(os.path.join(d, "calibration.json"), "w") as f:
+            json.dump({"color": {
+                "width": 2048, "height": 1536, "fx": 976.0, "fy": 976.0,
+                "cx": 1018.0, "cy": 779.0,
+                "opencv": [1018.0, 779.0, 976.0, 976.0, 0.45, -2.5, 1.4,
+                           0.33, -2.3, 1.3, 0.0, 0.0]}}, f)
+        np.save(os.path.join(d, "pointcloud_table.npy"),
+                np.dstack([(xs - 320.0) / 504.0, (ys - 288.0) / 504.0]))
+        d = os.path.join(calib, "config", str(k))
+        os.makedirs(d)
+        rot = _rot((0, 1, 0), 0.15 * (k + 1))
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({"rotation": rot.reshape(-1).tolist(),
+                       "translation": [0.1 * k, 0.05, 0.1]}, f)
+    color = encode_jpeg(np.full((1536, 2048, 3), 90, np.uint8))
+    depth = encode_png(np.full((576, 640), 2100, np.uint16))
+    yy, xx = np.mgrid[0:1536, 0:2048]
+    full = ((xx - 1100) ** 2 + (yy - 800) ** 2 < 250 ** 2).astype(np.uint8)
+    visible = full * (yy < 930)
+    masks = {"k1.obj_rend_full.jpg": encode_jpeg(255 * full),
+             "k1.obj_rend_mask.jpg": encode_jpeg(255 * visible)}
+
+    sm = synthetic_smplh()
+    smplh = SMPLH(sm, device="cpu")
+    faces = np.concatenate([sm["faces"], sm["faces"][:, ::-1]]).astype(
+        np.int32)
+    ov, of = octasphere(radius=0.2, center=(0.45, 0.0, 2.0), subdiv=4)
+    rng = np.random.RandomState(0)
+    rot = _rot((0.3, 1.0, 0.2), RECON_ANGLE)
+    recons = {v: os.path.join(root, f"recon_{v}") for v in ("moved",
+                                                            "still")}
+    for i in range(EVAL_FRAMES):
+        frame = os.path.join(seq, f"t{i:04d}.000")
+        pose = np.zeros((1, 72), np.float32)
+        pose[0, 3:] = 0.15 * rng.randn(69)
+        sp = init_params(pose, np.zeros((1, 10)), np.zeros((1, 3)),
+                         device="cpu")
+        with torch.no_grad():
+            sv = smplh.verts(sp)[0].numpy()
+            sv = sv + (np.array([0.0, 0.0, 2.0]) - smplh.pelvis(sp)[0].numpy())
+        fo = ov + 0.02 * rng.randn(3)
+        for sub, name, v, fc in (("person/fit02", "person_fit.ply", sv,
+                                  faces),
+                                 ("boxmedium/fit01", "boxmedium_fit.ply", fo,
+                                  of)):
+            os.makedirs(os.path.join(frame, sub))
+            save_ply(os.path.join(frame, sub, name), v, fc)
+        for k in (0, 1):
+            for name, data in ((f"k{k}.color.jpg", color),
+                               (f"k{k}.depth.png", depth)):
+                with open(os.path.join(frame, name), "wb") as f:
+                    f.write(data)
+        for name, data in masks.items():
+            with open(os.path.join(frame, name), "wb") as f:
+                f.write(data)
+        noisy = [(v + 0.002 * rng.randn(*v.shape), fc)
+                 for v, fc in ((sv, faces), (fo, of))]
+        for variant, move in (
+                ("moved", lambda p: RECON_SCALE * p @ rot.T + RECON_T),
+                ("still", lambda p: p)):
+            out = os.path.join(recons[variant], os.path.basename(seq),
+                               f"t{i:04d}.000", "smoke")
+            os.makedirs(out)
+            for name, (v, fc) in zip(("k1.smpl.ply", "k1.object.ply"),
+                                     noisy):
+                save_ply(os.path.join(out, name), move(v), fc)
+    return seq, recons
+
+
+def evaluate_seq(torch, counters, seq, recon, dev, workers=None):
+    """One ``ReconEvaluator.eval_seqs`` over ``seq``: (per-frame errors
+    (F, 2), wall s, K1 launches, timer summary, result)."""
+    from chore_tpu_torch.recon.evaluate import ReconEvaluator
+
+    ev = ReconEvaluator(recon, os.path.dirname(seq), sample_num=EVAL_SAMPLES,
+                        outdir=os.path.join(recon, "results"), device=dev)
+    for d, k in counters.values():
+        d[k] = 0
+    t0 = time.perf_counter()
+    res = ev.eval_seqs([seq], "smoke", tid=1)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = counters["nn_grouped"][0][counters["nn_grouped"][1]]
+    errors = ev.errors_dict[os.path.basename(seq)]
+    return errors, sec, launches, ev.timer.summary(), res
+
+
+def _f64_procrustes(src, ref):
+    """The similarity taking ``src`` onto ``ref``, solved in float64 (numpy),
+    as a function of points."""
+    mu1, mu2 = src.mean(0), ref.mean(0)
+    x1, x2 = src - mu1, ref - mu2
+    u, _, vh = np.linalg.svd(x1.T @ x2)
+    z = np.eye(3)
+    z[2, 2] = np.sign(np.linalg.det(u @ vh))
+    r = vh.T @ z @ u.T
+    s = np.trace(r @ x1.T @ x2) / (x1 * x1).sum()
+    return lambda p: s * p @ r.T + (mu2 - s * mu1 @ r.T)
+
+
+def eval_oracle(seq, recon):
+    """Per-frame float64 errors of the evaluator's protocol: the same native
+    samples (seeds 0-3), a float64 Procrustes on the combined vertices, a
+    cKDTree Chamfer."""
+    from scipy.spatial import cKDTree
+
+    from chore_tpu_torch import native
+    from chore_tpu_torch.recon.evaluate import ReconDataReader
+
+    reader = ReconDataReader(recon, seq, check_image=False)
+    out = []
+    for i in range(len(reader)):
+        meshes = [reader.get_smplfit(i, "fit02"),
+                  reader.get_objfit(i, "fit01"),
+                  *reader.get_recon(i, "smoke", 1)]
+        samp = [native.sample_surface(v, f, EVAL_SAMPLES, seed=k).astype(
+            np.float64) for k, (v, f) in enumerate(meshes)]
+        move = _f64_procrustes(
+            np.concatenate([meshes[2][0], meshes[3][0]]).astype(np.float64),
+            np.concatenate([meshes[0][0], meshes[1][0]]).astype(np.float64))
+        out.append([cKDTree(b).query(a)[0].mean() + cKDTree(a).query(b)[0]
+                    .mean() for a, b in ((samp[0], move(samp[2])),
+                                         (samp[1], move(samp[3])))])
+    return np.asarray(out)
+
+
+def run_eval(torch, dev, card, counters, root):
+    """The evaluator on the card over the synthetic sequence at sample_num
+    10,000: s/frame and its split, K1 launches (one per evaluated frame),
+    card against the CPU, the Procrustes-recovered errors against the
+    unmoved reconstruction's, then ``python -m chore_tpu_torch.cli.evaluate``
+    in a fresh process."""
+    from chore_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.build()
+    log(f"  native library (g++ {' '.join(native.CXX_FLAGS)}): "
+        f"{time.perf_counter() - t0:.2f} s")
+    seq, recons = write_behave_seq(torch, root)
+    evaluate_seq(torch, counters, seq, recons["moved"], dev)  # warm-up
+    errors, sec, launches, split, res = evaluate_seq(torch, counters, seq,
+                                                     recons["moved"], dev)
+    frames = res["total"]
+    per_frame = {k: v["mean_ms"] for k, v in split.items()}
+    log(f"  ReconEvaluator on the card ({frames} frames, sample_num "
+        f"{EVAL_SAMPLES}, 4 threads): {sec / frames:.4f} s/frame, "
+        f"{sec:.3f} s [{card}]")
+    log(f"  per-frame stage ms (each thread's own wall time): "
+        f"{json.dumps(per_frame)} [{card}]")
+    log(f"  K1 launches: {launches} for {frames} evaluated frames; errors "
+        f"(smpl, obj) frame 0: {errors[0].tolist()}")
+    if frames != EVAL_FRAMES or launches != frames:
+        raise SystemExit(f"eval: {launches} K1 launches for {frames} frames "
+                         f"(of {EVAL_FRAMES})")
+    if not (np.isfinite(errors).all() and (errors > 0).all()
+            and (errors < 0.05).all()):
+        raise SystemExit(f"eval: implausible errors {errors.tolist()}")
+    oracle = eval_oracle(seq, recons["moved"])
+    off = float((np.abs(errors - oracle) / oracle).max())
+    log(f"  card against a float64 oracle (same samples, numpy Procrustes, "
+        f"cKDTree): max rel diff {off:.3g} (tol {EVAL_REL_TOL})")
+    if not off <= EVAL_REL_TOL:
+        raise SystemExit("eval: the card is off the float64 oracle")
+    still = evaluate_seq(torch, counters, seq, recons["still"], dev)[0]
+    gap = float(np.abs(errors - still).max())
+    gap_rel = float((np.abs(errors - still) / still).max())
+    log(f"  Procrustes-recovered errors against the unmoved reconstruction's:"
+        f" max |diff| {gap:.3g} m, {gap_rel:.3g} relative (tol "
+        f"{EVAL_MOVED_TOL} m)")
+    if not gap <= EVAL_MOVED_TOL:
+        raise SystemExit("eval: Procrustes does not undo the transform")
+    cpu_errors, cpu_sec = evaluate_seq(torch, counters, seq, recons["moved"],
+                                       torch.device("cpu"))[:2]
+    card_cpu = float((np.abs(errors - cpu_errors) / cpu_errors).max())
+    log(f"  card vs CPU (plain 1-NN, {cpu_sec / frames:.3f} s/frame): max rel "
+        f"diff {card_cpu:.3g} (tol {EVAL_REL_TOL})")
+    if not card_cpu <= EVAL_REL_TOL:
+        raise SystemExit("eval: the card disagrees with the CPU")
+    out = os.path.join(root, "cli_results")
+    cli_s = run_cli(
+        "chore_tpu_torch.cli.evaluate",
+        ["-sn", "smoke", "-r", recons["moved"], "-b", root, "--seqs", seq,
+         "-t", "1", "--outdir", out]
+        + (["--device", "cpu"] if dev.type == "cpu" else []), 600)
+    files = os.listdir(out)
+    with open(os.path.join(out, files[0])) as f:
+        written = json.load(f)
+    if len(files) != 1 or written["total"] != frames or not np.isclose(
+            written["smpl"]["mean"], res["smpl"]["mean"], rtol=1e-6):
+        raise SystemExit(f"eval cli: wrote {files}")
+    log(f"  python -m chore_tpu_torch.cli.evaluate: {cli_s:.2f} s in a fresh "
+        f"process (imports, library load, {frames} frames); JSON "
+        f"{files[0]} [{card}]")
+    result = {"s_per_frame": sec / frames, "frames": frames,
+              "stage_ms_per_frame": per_frame, "launches": launches,
+              "card_vs_cpu_rel": card_cpu, "procrustes_abs_m": gap,
+              "oracle_rel": off,
+              "cpu_s_per_frame": cpu_sec / frames, "cli_s": cli_s}
+    log(json.dumps({"eval": result, "card": card}))
+    return result, seq
+
+
+def _near_ties(points, verts, tol):
+    """(N,) bool: the best two squared vertex distances within ``tol``."""
+    d = ((points[:, None, :].astype(np.float64)
+          - verts[None].astype(np.float64)) ** 2).sum(-1)
+    two = np.partition(d, 1, axis=1)[:, :2]
+    return (two[:, 1] - two[:, 0]) <= tol
+
+
+def _scaled_gt(seq, idx, kid):
+    """The frame's GT SMPL vertices and faces and object as
+    ``process_scale_frame`` samples them (kinect frame, depth-scaled)."""
+    from chore_tpu_torch.behave.readers import FrameDataReader, KinectTransform
+    from chore_tpu_torch.smpl.assets import load_landmark_regressors
+
+    reader, kin = FrameDataReader(seq), KinectTransform(seq)
+    sv, sf = reader.get_smplfit(idx, "fit02")
+    ov, of = reader.get_objfit(idx, "fit01")
+    sv, ov = kin.world2local(sv, kid), kin.world2local(ov, kid)
+    scale = 2.2 / (load_landmark_regressors()["body25"] @ sv)[8, 2]
+    return ((sv * scale).astype(np.float32), sf,
+            (ov * scale).astype(np.float32), of)
+
+
+def run_preprocess(torch, dev, card, counters, seq, root):
+    """``process_scale_frame`` on frame 0, kinect 1, at the release
+    settings with the native and the device backend: s/frame, K1 launches,
+    peak memory; the two backends' files agree; the device backend on the
+    card against the CPU at a small size; then ``python -m
+    chore_tpu_torch.cli.preprocess`` over the sequence."""
+    import tracemalloc
+
+    from chore_tpu_torch.behave.readers import FrameDataReader, KinectTransform
+    from chore_tpu_torch.preprocess import BoundarySampler, process_scale_frame
+
+    reader, kin = FrameDataReader(seq), KinectTransform(seq)
+    if reader.get_depth_images(0, [1])[0].dtype != np.uint16:
+        raise SystemExit("preprocess: depth not read as 16-bit")
+    files, result = {}, {}
+    for backend in ("native", "device"):
+        sampler = BoundarySampler(seed=0, backend=backend, device=dev)
+        out = os.path.join(root, f"proc_{backend}")
+        process_scale_frame(reader, kin, sampler, 1, 1, out,
+                            **{**PREP_KW, "sample_num": 2000})  # warm-up
+        sampler.rng = np.random.RandomState(0)
+        for d, k in counters.values():
+            d[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        files[backend] = process_scale_frame(reader, kin, sampler, 0, 1, out,
+                                             redo=True, **PREP_KW)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = counters["nn_grouped"][0][counters["nn_grouped"][1]]
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        # host peak of the numpy arrays (numpy reports its allocations to
+        # tracemalloc), in an untimed repeat: tracing slows allocation
+        sampler.rng = np.random.RandomState(0)
+        tracemalloc.start()
+        process_scale_frame(reader, kin, sampler, 0, 1, out, redo=True,
+                            **PREP_KW)
+        host = tracemalloc.get_traced_memory()[1] / 2 ** 20
+        tracemalloc.stop()
+        result[backend] = {"s_per_frame": sec, "launches": launches,
+                           "device_peak_mib": peak, "host_peak_mib": host}
+        log(f"  process_scale_frame backend={backend} (sample_num "
+            f"{PREP_KW['sample_num']}, sigmas {PREP_KW['sigmas']}): "
+            f"{sec:.4f} s/frame, K1 launches {launches}, device peak "
+            f"{peak:.1f} MiB above the resident, host peak {host:.1f} MiB "
+            f"(numpy arrays) [{card}]")
+        want = 6 if backend == "device" else 0  # 3 sigmas x (SMPL, object)
+        if launches != want:
+            raise SystemExit(f"preprocess {backend}: {launches} K1 launches, "
+                             f"expected {want}")
+    a = np.load(files["native"], allow_pickle=True)
+    b = np.load(files["device"], allow_pickle=True)
+    sv = _scaled_gt(seq, 0, 1)[0]
+    worst, ties = 0.0, 0
+    for s in a["points"].item():
+        pts = a["points"].item()[s]
+        if not np.array_equal(pts, b["points"].item()[s]):
+            raise SystemExit(f"preprocess: points differ at {s}")
+        for name in ("dist_h", "dist_o"):
+            worst = max(worst, float(np.abs(a[name].item()[s]
+                                            - b[name].item()[s]).max()))
+        differ = a["parts"].item()[s] != b["parts"].item()[s]
+        ties += int(differ.sum())
+        if differ.any() and not _near_ties(pts[differ], sv, NN_DIST_TOL).all():
+            raise SystemExit(f"preprocess: labels differ beyond near-ties at "
+                             f"{s}")
+    log(f"  native vs device backend: points bitwise equal, max |udf diff| "
+        f"{worst:.3g} m (tol {PREP_UDF_TOL}), {ties} labels differ, all at "
+        f"near-ties")
+    if not worst <= PREP_UDF_TOL:
+        raise SystemExit("preprocess: the backends' UDFs disagree")
+    result["backend_udf_diff"] = worst
+    small = dict(sigmas=PREP_KW["sigmas"], ratios=PREP_KW["ratios"],
+                 sample_num=3000, min_samples=1000, grid_ratio=0.01)
+    mesh = _scaled_gt(seq, 0, 1)
+    outs = [BoundarySampler(seed=0, backend="device", device=d)
+            .boundary_sample_all(*mesh, **small)
+            for d in (dev, torch.device("cpu"))]
+    gap = 0.0
+    for s in outs[0]["points"]:
+        if not np.array_equal(outs[0]["points"][s], outs[1]["points"][s]):
+            raise SystemExit("preprocess: card and CPU points differ")
+        for name in ("dist_h", "dist_o"):
+            gap = max(gap, float(np.abs(outs[0][name][s]
+                                        - outs[1][name][s]).max()))
+        differ = outs[0]["parts"][s] != outs[1]["parts"][s]
+        if differ.any() and not _near_ties(outs[0]["points"][s][differ],
+                                           mesh[0], NN_DIST_TOL).all():
+            raise SystemExit("preprocess: card and CPU labels differ")
+    log(f"  device backend card vs CPU ({small['sample_num']} samples): max "
+        f"|udf diff| {gap:.3g} m (tol {PREP_CARD_TOL})")
+    if not gap <= PREP_CARD_TOL:
+        raise SystemExit("preprocess: the card disagrees with the CPU")
+    result["card_vs_cpu_udf"] = gap
+    # the entry point at its defaults: on the card, so the device backend
+    from chore_tpu_torch.cli.preprocess import main as preprocess_main
+
+    out = os.path.join(root, "proc_cli")
+    for d, k in counters.values():
+        d[k] = 0
+    t0 = time.perf_counter()
+    written = preprocess_main(["-s", seq, "-o", out, "-k", "1"])[seq]
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_launches = counters["nn_grouped"][0][counters["nn_grouped"][1]]
+    log(f"  cli.preprocess.main at its defaults ({len(written)} frames x "
+        f"kinect 1, release settings, on the card): {cli_s:.2f} s, "
+        f"{cli_s / EVAL_FRAMES:.3f} s/frame, K1 launches {cli_launches} "
+        f"[{card}]")
+    if len(written) != EVAL_FRAMES or cli_launches != 6 * EVAL_FRAMES:
+        raise SystemExit(f"preprocess cli: {len(written)} files, "
+                         f"{cli_launches} K1 launches")
+    c = np.load(written[0], allow_pickle=True)  # frame 0, the same seed
+    for s in b["points"].item():
+        if not np.array_equal(c["points"].item()[s], b["points"].item()[s]):
+            raise SystemExit("preprocess cli: points differ from the device "
+                             "backend's")
+        for name in ("dist_h", "dist_o"):
+            if not np.abs(c[name].item()[s] - b[name].item()[s]).max() \
+                    <= PREP_CARD_TOL:
+                raise SystemExit("preprocess cli: UDF differs from the "
+                                 "device backend's")
+    result.update(cli_s=cli_s, cli_launches=cli_launches)
+    log(json.dumps({"preprocess": result, "card": card}))
+    return result
+
+
+def run_cli(module, args, timeout):
+    """``python -m module args`` in a fresh process, as a user runs it:
+    wall seconds. Its output is shown if it fails."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=HERE,
+                          env=env, timeout=timeout, capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:], proc.stderr[-8000:])
+        raise SystemExit(f"{module} exited {proc.returncode}")
+    return time.perf_counter() - t0
+
+
+# --------------------------------------------------------------------- #
 # optional phase: where the fit's time goes (torch.profiler)
 def run_profile(torch, dev, card, out_dir):
     """A release-width fit at its defaults (the silhouette phase on) with
@@ -1311,13 +1846,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of "
-                    + ",".join(PHASES + ("profile",))
-                    + " (profile is off by default)")
+                    + ",".join(PHASES + OPT_IN)
+                    + " (" + " and ".join(OPT_IN) + " are off by default)")
     ap.add_argument("--out", default=None,
                     help="directory to write the full profile table to")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES + ("profile",))
+    unknown = set(phases) - set(PHASES + OPT_IN)
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}")
 
@@ -1369,6 +1904,8 @@ def main(argv=None):
                          "source": "chore_tpu_torch/csrc/silhouette.cu",
                          "replaces": "chore_tpu/ops/pallas/silhouette.py:143"},
     }
+    # launches through each path that was run: {kernel: {path: count}}
+    paths = {name: {} for name in kernels}
     counters = {"nn_grouped": (nn_mod.launches, "nn_grouped"),
                 "coverage_fwd": (sil_mod.launches, "coverage_fwd"),
                 "coverage_bwd": (sil_mod.launches, "coverage_bwd")}
@@ -1398,18 +1935,44 @@ def main(argv=None):
         fit = run_fit(torch, dev, card, counters)
         for name in kernels:  # the fitter's path: the default fit, sil on
             kernels[name]["launches"] = fit["sil"]["launches"][name]
+            paths[name]["fit"] = fit["sil"]["launches"][name]
 
     if "recon" in phases:
         log("phase recon:")
         recon = run_recon(torch, dev, card, counters)
         for name in kernels:  # the release entry point
             kernels[name]["launches"] = recon["api"]["launches"][name]
+            paths[name]["recon"] = recon["api"]["launches"][name]
 
     if "demo" in phases:
         log("phase demo:")
         demo, raster_calls = run_demo_phase(torch, dev, card, counters)
         for name in kernels:  # the main path: the demo
             kernels[name]["launches"] = demo["launches"][name]
+            paths[name]["demo"] = demo["launches"][name]
+
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as data_root:
+        seq = None
+        if "eval" in phases:
+            log("phase eval:")
+            ev, seq = run_eval(torch, dev, card, counters, data_root)
+            paths["nn_grouped"]["eval"] = ev["launches"]
+        if "preprocess" in phases:
+            log("phase preprocess:")
+            if seq is None:
+                seq = write_behave_seq(torch, data_root)[0]
+            prep = run_preprocess(torch, dev, card, counters, seq, data_root)
+            paths["nn_grouped"]["preprocess"] = prep["device"]["launches"]
+            paths["nn_grouped"]["preprocess_cli"] = prep["cli_launches"]
+    for name in kernels:
+        kernels[name]["launches_by_path"] = paths[name]
+
+    if "loader" in phases:
+        log("phase loader:")
+        log(json.dumps({"loader_s_per_frame": loader_comparison(
+            torch, dev, card), "card": card}))
 
     # last: the torch.profiler sessions (they slow what runs after them)
     if "recon" in phases:

@@ -1,6 +1,8 @@
 """BEHAVE sequence reconstruction entry point (counterpart of
 ``chore_tpu/cli/recon.py``): per-frame joint SMPL + object fitting over a
-sequence, in sequence order, with resume support.
+sequence, in sequence order, with resume support. Frames are prepared in a
+4-worker ``DataLoader``, as the reference does, so the next batch's decode
+and crop overlap the current fit.
 
 Usage:
   python -m chore_tpu_torch.cli.recon <exp_name> -s SEQ -sn SAVE_NAME \\
@@ -28,7 +30,7 @@ from chore_tpu_torch.cli.common import (
     load_trained,
 )
 from chore_tpu_torch.config import ChoreConfig, load_config
-from chore_tpu_torch.data import DataPaths, TestImagePrep, collate
+from chore_tpu_torch.data import DataLoader, DataPaths, TestImagePrep
 from chore_tpu_torch.recon import losses as L
 from chore_tpu_torch.recon.fitter import ReconFitter
 from chore_tpu_torch.recon.templates import is_done, save_outputs
@@ -41,6 +43,20 @@ NOT_PORTED = {
     "data_parallel": "--data-parallel is not ported yet: data-parallel "
                      "reconstruction comes with the DDP slice (ROADMAP.md)",
 }
+
+
+class _PrepDataset:
+    """The sequence's frames, each prepared by ``TestImagePrep.prepare``."""
+
+    def __init__(self, files, prep):
+        self.files = files
+        self.prep = prep
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, i):
+        return self.prep.prepare(self.files[i])
 
 
 def recon_fit(cfg: ChoreConfig, seq_folder, save_name, outpath="recon_out",
@@ -82,22 +98,30 @@ def recon_fit(cfg: ChoreConfig, seq_folder, save_name, outpath="recon_out",
     files = files[start:end if end is not None else len(files)]
     print(f"{len(files)} test frames")
     monitor = FitMonitor(debug_viz) if debug_viz else None
-    for b0 in range(0, len(files), batch_size):
-        paths = files[b0:b0 + batch_size]
+    # batches already written are skipped before any frame is prepared; the
+    # rest keep their grouping (only whole batches, or the trailing one, go)
+    todo = []
+    for b in range(0, len(files), batch_size):
+        paths = files[b:b + batch_size]
         if not redo and is_done(outpath, paths, save_name, tid):
             print(f"{paths[0]} already done, skipped")
-            continue
+        else:
+            todo += paths
+    # the next batch is prepared by the loader's workers while this one fits
+    for batch in DataLoader(_PrepDataset(todo, prep), batch_size,
+                            num_workers=4):
+        paths = batch["path"]
         t0 = time.time()
-        batch = collate([prep.prepare(p) for p in paths])
         B = len(paths)
         if B < batch_size:
-            # pad the trailing partial batch to the full batch size by
-            # repeating the last frame (one batch shape for the whole run);
-            # save_outputs writes only len(paths) frames
+            # pad the trailing partial batch to the full batch size
+            # by repeating the last frame (one batch shape for the
+            # whole run); save_outputs writes only len(paths) frames
             pad = batch_size - B
             for k, v in list(batch.items()):
                 if isinstance(v, np.ndarray):
-                    batch[k] = np.concatenate([v] + [v[-1:]] * pad, axis=0)
+                    batch[k] = np.concatenate([v] + [v[-1:]] * pad,
+                                              axis=0)
         result = fitter.fit_batch(
             batch["images"], batch["crop_center"], batch["mocap_pose"],
             batch["mocap_betas"], batch["kpts"],
@@ -108,8 +132,11 @@ def recon_fit(cfg: ChoreConfig, seq_folder, save_name, outpath="recon_out",
         save_outputs(
             outpath, paths, save_name, tid,
             host(smplh.verts(sp)), smplh.faces,
-            host(pack_pose(sp)), host(pack_betas(sp)), host(sp["trans"]),
-            host(fitter.transform_obj(op, points=fitter.template_verts)), tf,
+            host(pack_pose(sp)), host(pack_betas(sp)),
+            host(sp["trans"]),
+            host(fitter.transform_obj(op,
+                                      points=fitter.template_verts)),
+            tf,
             host(result["obj_R"]), host(op["obj_t"]), host(op["obj_s"]),
         )
         print(f"batch done in {time.time() - t0:.1f}s")

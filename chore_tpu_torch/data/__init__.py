@@ -1,6 +1,6 @@
 """Test-time data path of the port (numpy only; counterpart of
 ``chore_tpu.data``)."""
-from chore_tpu_torch.data.loader import collate
+from chore_tpu_torch.data.loader import DataLoader, collate
 from chore_tpu_torch.data.paths import (
     DataPaths,
     load_kpts_json,
@@ -10,6 +10,7 @@ from chore_tpu_torch.data.paths import (
 from chore_tpu_torch.data.test_data import TestImagePrep
 
 __all__ = [
+    "DataLoader",
     "DataPaths",
     "TestImagePrep",
     "collate",

@@ -7,6 +7,8 @@ file's magic bytes, not its extension):
 
 * ``read_rgb``: ``np.array(PIL.Image.open(path))``. PIL does not apply the
   EXIF Orientation tag, so neither does this reader.
+* ``read_depth``: ``cv2.imread(path, cv2.IMREAD_ANYDEPTH)`` (16-bit PNG
+  depth maps as uint16).
 * ``read_gray``: ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``, and
   ``read_bgr``: ``cv2.imread(path)`` (IMREAD_COLOR). OpenCV rotates and
   flips the pixels by the EXIF Orientation tag (1-8) of a JPEG's APP1
@@ -38,7 +40,8 @@ Formats:
 
 Writers (``imwrite``, standing for ``cv2.imwrite`` on a BGR or gray uint8
 image): baseline JPEG as libjpeg-turbo writes it at OpenCV's defaults
-(quality 95, 4:2:0, standard Huffman tables, JFIF), and PNG.
+(quality 95, 4:2:0, standard Huffman tables, JFIF), and PNG (also of a
+uint16 image, 16-bit samples).
 
 The Huffman decode is a Python loop over the coded symbols; the rest,
 the JPEG encoder's entropy stage included, is vectorised numpy.
@@ -77,6 +80,27 @@ def read_gray(path):
         return _orient(jpg.decode(gray=True), jpg.orientation)
     png = _Png(data, path)
     return _orient(png.cv2(color=False), png.orientation)
+
+
+def read_depth(path):
+    """What ``cv2.imread(path, cv2.IMREAD_ANYDEPTH)`` gives, (H, W), EXIF
+    orientation applied: a 16-bit PNG keeps its 16-bit samples as uint16
+    (colour through libpng's rgb_to_gray at 16 bits, rounded); any other
+    file reads as ``read_gray`` does (uint8)."""
+    data = _read(path)
+    if data.startswith(JPEG_MAGIC):
+        return read_gray(path)
+    png = _Png(data, path)
+    if png.depth != 16:
+        return _orient(png.cv2(color=False), png.orientation)
+    s = png.samples.astype(np.int64)
+    if png.ctype in (0, 4):
+        g = s[..., 0]
+    else:
+        r, gg, b = s[..., 0], s[..., 1], s[..., 2]
+        mixed = (9797 * r + 19234 * gg + 3737 * b + 16384) >> 15
+        g = np.where((r != gg) | (r != b), mixed, r)
+    return _orient(g.astype(np.uint16), png.orientation)
 
 
 def read_bgr(path):
@@ -946,7 +970,8 @@ def _unfilter_sequential(f, line, prev, bpp):
 def imwrite(path, img):
     """What ``cv2.imwrite(path, img)`` writes for a uint8 image that is
     gray (H, W) or BGR (H, W, 3), by the extension: ``.jpg``/``.jpeg`` with
-    ``encode_jpeg``'s defaults, ``.png`` with ``encode_png``."""
+    ``encode_jpeg``'s defaults, ``.png`` with ``encode_png`` (which also
+    takes uint16)."""
     ext = os.path.splitext(str(path))[1].lower()
     if ext in (".jpg", ".jpeg"):
         data = encode_jpeg(img)
@@ -958,10 +983,11 @@ def imwrite(path, img):
         f.write(data)
 
 
-def _check_u8(img, channels):
+def _check_u8(img, channels, dtypes=(np.uint8,)):
     img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise ValueError(f"only uint8 images are written, not {img.dtype}")
+    if img.dtype not in dtypes:
+        names = " or ".join(np.dtype(d).name for d in dtypes)
+        raise ValueError(f"only {names} images are written, not {img.dtype}")
     c = 1 if img.ndim == 2 else (img.shape[2] if img.ndim == 3 else 0)
     if c not in channels or min(img.shape[:2]) == 0:
         raise ValueError(f"cannot write an image of shape {img.shape}")
@@ -1300,22 +1326,28 @@ def _jpeg_file(H, W, qs, sampling, data):
 
 
 def encode_png(img):
-    """An 8-bit PNG of a uint8 gray (H, W) or BGR (H, W, 3) image (written
-    as gray or RGB, the channel order swapped back as cv2.imwrite does),
-    every row filter type 0, zlib level 6."""
-    img = _check_u8(img, (1, 3))
+    """A PNG of a gray (H, W) or BGR (H, W, 3) image, uint8 or uint16 (8- or
+    16-bit samples, as ``cv2.imwrite`` writes a depth map; written as gray or
+    RGB, the channel order swapped back as cv2.imwrite does), every row
+    filter type 0, zlib level 6."""
+    img = _check_u8(img, (1, 3), (np.uint8, np.uint16))
     H, W = img.shape[:2]
+    depth = 16 if img.dtype == np.uint16 else 8
     if img.ndim == 2:
         ctype, rows = 0, img
     else:
         ctype, rows = 2, img[..., ::-1].reshape(H, -1)
-    raw = np.concatenate([np.zeros((H, 1), np.uint8), rows], 1)
+    rows = np.ascontiguousarray(rows).astype(">u2" if depth == 16 else
+                                             np.uint8).view(np.uint8)
+    raw = np.concatenate([np.zeros((H, 1), np.uint8), rows.reshape(H, -1)],
+                         1)
 
     def chunk(kind, body):
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
     return (PNG_MAGIC
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0))
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, ctype, 0,
+                                         0, 0))
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + chunk(b"IEND", b""))

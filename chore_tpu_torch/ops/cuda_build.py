@@ -6,7 +6,11 @@ under ``chore_tpu_torch/_build/`` at first use and loaded with ``ctypes``;
 nothing includes PyTorch's headers, so a build takes seconds. The library
 name carries a hash of the source and flags, so an edited source is rebuilt
 and a stale library is never loaded. ``build_all`` starts one ``nvcc`` per
-source at once and waits for all of them.
+source at once and waits for all of them. Building and loading are
+thread-safe (the evaluator calls kernels from a thread pool): one lock per
+process, and each build writes a temporary file unique to its process and
+thread before ``os.replace`` publishes it, so no caller loads a
+half-written library.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -27,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}
+_lock = threading.RLock()
 # nvcc's resource report (registers, shared memory, spills) per kernel
 build_log: dict = {}
 
@@ -56,7 +62,11 @@ def build_all(names=None):
     """Compile every kernel whose library is missing, all ``nvcc`` runs in
     parallel. Returns {name: seconds} (0.0 when already built); raises with
     nvcc's output if any compile fails."""
-    names = list(SOURCES) if names is None else list(names)
+    with _lock:
+        return _build_all(list(SOURCES) if names is None else list(names))
+
+
+def _build_all(names):
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs, secs = {}, {}
     nvcc = None
@@ -66,7 +76,7 @@ def build_all(names=None):
             secs[name] = 0.0
             continue
         nvcc = nvcc or _nvcc()
-        tmp = f"{lib}.{os.getpid()}.tmp"
+        tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -89,7 +99,10 @@ def load(name):
     """The kernel's ctypes library, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(_library_path(name)[1])
-        _loaded[name] = lib
+        with _lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build_all([name])
+                lib = ctypes.CDLL(_library_path(name)[1])
+                _loaded[name] = lib
     return lib

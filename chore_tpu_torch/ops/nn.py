@@ -17,13 +17,16 @@ re-expresses the distance against the returned index for autograd.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 BIG = 1e10
 
 # kernel launches, counted where the kernel is launched and nowhere else
+# (under a lock: the evaluator launches from several threads)
 launches = {"nn_grouped": 0}
+_count_lock = threading.Lock()
 
 # problem kinds of the kernel's table (``Kind`` in the source)
 GROUPED, UNGROUPED, SHARED = 0, 1, 2
@@ -173,7 +176,8 @@ def nn_multi_cuda(problems):
         err = fn((Problem * len(entries))(*entries), len(entries), stream)
     if err != 0:
         raise RuntimeError(f"nn_grouped kernel launch failed: CUDA error {err}")
-    launches["nn_grouped"] += 1
+    with _count_lock:
+        launches["nn_grouped"] += 1
     return outs
 
 

@@ -6,11 +6,23 @@ approximate (~1e-3); ``torch.linalg.svd`` is exact to f32 on the CPU and the
 card, and at an orthogonal matrix the polish's Jacobian is the projection
 onto the tangent space, which the SVD projection's gradient already lies
 in -- so the polish changes neither values (beyond rounding) nor gradients
-and is left out. Matmuls here need full f32 (``use_full_f32``).
+and is left out of ``project_so3``. ``ops.procrustes`` keeps it, as the JAX
+package's Procrustes does (``_newton_schulz_orthogonalize``). Matmuls here
+need full f32 (``use_full_f32``).
 """
 from __future__ import annotations
 
 import torch
+
+
+def _newton_schulz_orthogonalize(x, steps=3):
+    """Polish nearly-orthogonal (..., 3, 3) matrices towards O(3):
+    X <- X (3I - X^T X) / 2, ``steps`` times (quadratic convergence; the
+    determinant's sign is kept)."""
+    eye = torch.eye(3, dtype=x.dtype, device=x.device)
+    for _ in range(steps):
+        x = 0.5 * (x @ (3.0 * eye - x.transpose(-1, -2) @ x))
+    return x
 
 
 def project_so3(mat):

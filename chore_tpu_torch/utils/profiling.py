@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from collections import defaultdict
 
@@ -12,10 +13,14 @@ class StepTimer:
 
     with timer.phase("encode"): ...
     timer.summary() -> {phase: {count, total_s, mean_ms, max_ms}}
+
+    Phases may be timed from several threads at once (the evaluator's
+    pool): each records its own wall time.
     """
 
     def __init__(self):
         self._acc = defaultdict(list)
+        self._lock = threading.Lock()
 
     def reset(self):
         self._acc.clear()
@@ -26,11 +31,15 @@ class StepTimer:
         try:
             yield
         finally:
-            self._acc[name].append(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self._acc[name].append(dt)
 
     def summary(self):
         out = {}
-        for name, ts in self._acc.items():
+        with self._lock:
+            items = [(k, list(v)) for k, v in self._acc.items()]
+        for name, ts in items:
             out[name] = {
                 "count": len(ts),
                 "total_s": round(sum(ts), 4),

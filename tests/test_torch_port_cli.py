@@ -63,17 +63,24 @@ def test_same_files_and_pickle_keys(runs):
                 assert np.shape(got[k]) == np.shape(want[k]), (f, k)
 
 
-def test_second_run_skips(runs, capsys):
+def test_second_run_skips(runs, capsys, monkeypatch):
+    """The second run skips the written frame before preparing it (no
+    decode or crop for a frame already done)."""
     from chore_tpu_torch.cli.recon import recon_fit
     from chore_tpu_torch.config import ChoreConfig
+    from chore_tpu_torch.data import TestImagePrep
 
     _, out_t, kw = runs
     ply = os.path.join(out_t, "example_synth", "frame0000", "fit",
                        "k1.object.ply")
     before = os.stat(ply).st_mtime_ns
+    prepared = []
+    monkeypatch.setattr(TestImagePrep, "prepare",
+                        lambda self, f: prepared.append(f))
     fitter = recon_fit(ChoreConfig(**SMALL_CFG), EXAMPLE_SEQ, "fit", out_t,
                        **kw)
     assert "already done, skipped" in capsys.readouterr().out
+    assert prepared == []
     assert os.stat(ply).st_mtime_ns == before
     assert fitter.timer.summary() == {}
 

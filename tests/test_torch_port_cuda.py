@@ -9,6 +9,8 @@ The 1-NN cases are shared with ``test_torch_port_nn.py``, and
 ``test_torch_port_silhouette.py`` holds the coverage kernels' plain versions
 to the TPU kernels on the CPU.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -410,3 +412,161 @@ def test_hard_rasterize_on_card_matches_cpu(cuda_device):
     assert eq.float().mean() >= 0.999
     assert float((gz - cz).abs()[eq].max()) <= 1e-4
     assert float((gw - cw).abs()[eq].max()) <= 1e-4
+
+
+# --------------------------------------------------------------------- #
+# evaluation and preprocessing: K1 at its other users' calls
+@pytest.mark.cuda
+def test_chamfer_eval_and_point_mesh_udf_on_card(cuda_device):
+    """``chamfer_eval_multi`` (the evaluator's four problems, one launch)
+    and ``point_mesh_udf`` on the card against the same functions on the
+    CPU: Chamfer within 1e-5 relative, UDF within 1e-6, nearest vertices
+    equal except where the best two distances lie within 5e-5."""
+    from chore_tpu_torch import use_full_f32
+    from chore_tpu_torch.ops import nn as tnn
+    from chore_tpu_torch.ops.chamfer import chamfer_eval_multi
+    from chore_tpu_torch.ops.point_mesh import point_mesh_udf
+    from chore_tpu_torch.smpl import synthetic_smplh
+
+    use_full_f32()
+    rng = np.random.RandomState(3)
+    clouds = [torch.from_numpy((rng.randn(n, 3) * 0.3 + [0, 0, 2.2]).astype(
+        np.float32)) for n in (10000, 10000, 10000, 10000)]
+    pairs = [(clouds[0], clouds[2]), (clouds[1], clouds[3])]
+    cpu = chamfer_eval_multi(pairs)
+    before = tnn.launches["nn_grouped"]
+    card = chamfer_eval_multi([(a.to(cuda_device), b.to(cuda_device))
+                               for a, b in pairs])
+    torch.cuda.synchronize()
+    assert tnn.launches["nn_grouped"] - before == 1
+    for c, g in zip(cpu, card):
+        assert abs(float(g) - float(c)) <= 1e-5 * float(c)
+
+    sm = synthetic_smplh()
+    verts = torch.from_numpy(sm["v_template"].astype(np.float32)
+                             + np.float32([0, 0.2, 2.2]))
+    faces = torch.from_numpy(sm["faces"].astype(np.int64))
+    pts = torch.from_numpy((rng.randn(5000, 3) * 0.4 + [0, 0.2, 2.2]).astype(
+        np.float32))
+    d_c, i_c = point_mesh_udf(pts, verts, faces)
+    before = tnn.launches["nn_grouped"]
+    d_g, i_g = (x.cpu() for x in point_mesh_udf(
+        pts.to(cuda_device), verts.to(cuda_device), faces.to(cuda_device)))
+    assert tnn.launches["nn_grouped"] - before == 1
+    assert float((d_g - d_c).abs().max()) <= 1e-6
+    differ = i_g != i_c
+    if bool(differ.any()):
+        d = ((pts[differ][:, None].double() - verts[None].double()) ** 2).sum(
+            -1)
+        two = torch.topk(d, 2, dim=-1, largest=False).values
+        assert bool(((two[:, 1] - two[:, 0]) <= 5e-5).all())
+
+
+def _write_eval_tree(root, frames):
+    """A BEHAVE sequence and reconstructions written with the port's own
+    writers (no cv2 on the card's machine): GT two spheres per frame, the
+    reconstruction a moved and scaled copy, masks passing the gate."""
+    import json
+
+    from chore_tpu_torch.data.imageio import imwrite
+    from chore_tpu_torch.utils.meshio import octasphere, save_ply
+
+    seq = os.path.join(root, "Date01_Sub01_basketball")
+    recon = os.path.join(root, "recon")
+    os.makedirs(seq)
+    with open(os.path.join(seq, "info.json"), "w") as f:
+        json.dump({"cat": "basketball", "gender": "male", "kinects": [0, 1]},
+                  f)
+    sv, sf = octasphere(radius=0.5, center=(0, 0.2, 2.2), subdiv=3)
+    ov, of = octasphere(radius=0.2, center=(0.7, 0, 2.2), subdiv=3)
+    mask = np.zeros((100, 100), np.uint8)
+    mask[10:90, 10:90] = 255
+    for k in range(frames):
+        frame = os.path.join(seq, f"t{k:04d}.000")
+        for sub, name, (v, fc) in (("person/fit02", "person_fit.ply",
+                                    (sv, sf)),
+                                   ("basketball/fit01", "basketball_fit.ply",
+                                    (ov, of))):
+            os.makedirs(os.path.join(frame, sub))
+            save_ply(os.path.join(frame, sub, name), v, fc)
+        imwrite(os.path.join(frame, "k1.obj_rend_mask.jpg"), mask)
+        imwrite(os.path.join(frame, "k1.obj_rend_full.jpg"), mask)
+        out = os.path.join(recon, os.path.basename(seq), f"t{k:04d}.000",
+                           "sn")
+        os.makedirs(out)
+        save_ply(os.path.join(out, "k1.smpl.ply"), sv * 1.2 + 0.1 * k, sf)
+        save_ply(os.path.join(out, "k1.object.ply"), ov * 1.2 + 0.1 * k, of)
+    return seq, recon
+
+
+@pytest.mark.cuda
+def test_evaluator_one_launch_per_frame_on_card(cuda_device, tmp_path):
+    """``ReconEvaluator`` on the card: one K1 launch per evaluated frame
+    (its thread pool launching concurrently), errors within 1e-5 relative
+    of the same evaluation on the CPU."""
+    from chore_tpu_torch.ops import nn as tnn
+    from chore_tpu_torch.recon.evaluate import ReconEvaluator
+
+    seq, recon = _write_eval_tree(str(tmp_path), frames=5)
+    kw = dict(sample_num=3000, outdir=str(tmp_path / "results"))
+    before = tnn.launches["nn_grouped"]
+    card = ReconEvaluator(recon, str(tmp_path), device=cuda_device, **kw)
+    res = card.eval_seqs([seq], "sn")
+    assert tnn.launches["nn_grouped"] - before == 5 == res["total"]
+    cpu = ReconEvaluator(recon, str(tmp_path), device="cpu", **kw)
+    cpu.eval_seqs([seq], "sn")
+    np.testing.assert_allclose(card.errors_dict["Date01_Sub01_basketball"],
+                               cpu.errors_dict["Date01_Sub01_basketball"],
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_first_k1_calls_from_four_threads_build_once(cuda_device, tmp_path,
+                                                     monkeypatch):
+    """Four threads making the process's first K1 call at once (a fresh,
+    empty build directory): nvcc runs once, every thread gets the right
+    answer, and the four launches are all counted."""
+    import subprocess
+    import threading
+
+    from chore_tpu_torch.ops import cuda_build
+    from chore_tpu_torch.ops import nn as tnn
+
+    started = []
+    popen = subprocess.Popen
+
+    def counting(cmd, *a, **k):
+        started.append(cmd)
+        return popen(cmd, *a, **k)
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "_loaded", {})
+    monkeypatch.setattr(cuda_build.subprocess, "Popen", counting)
+    x, y, ym, xg, yg = (torch.from_numpy(a)[None] for a in make_case(
+        5, groups=5, mask=0.3))
+    p = [(x, y, *tnn.group_rows(x, y, ym, xg, yg))]
+    pc = [tuple(t.to(cuda_device) for t in p[0])]
+    barrier = threading.Barrier(4)
+    outs, errors = [None] * 4, []
+
+    def call(k):
+        try:
+            barrier.wait()
+            outs[k] = tnn.nn_grouped_multi(pc)[0]
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    before = tnn.launches["nn_grouped"]
+    threads = [threading.Thread(target=call, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert len(started) == 1 and os.listdir(tmp_path) == [
+        os.path.basename(cuda_build._library_path("nn_grouped")[1])]
+    assert tnn.launches["nn_grouped"] - before == 4
+    for d, i in outs:
+        assert_nn_close(d, i, pc[0], 5e-5)
+
