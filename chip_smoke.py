@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases kernels
     python3 chip_smoke.py --phases profile --out DIR  # profiler breakdown
     python3 chip_smoke.py --phases loader  # cli.recon's prep loaders
+    python3 chip_smoke.py --phases ddp     # training on every card (2+)
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. card name and power limit, torch/CUDA versions; build every kernel
@@ -65,16 +66,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      but near-ties); the device backend on the card against the CPU at a
      small size; then ``cli.preprocess.main`` at its defaults over the
      sequence on the card (the device backend: K1 six times a frame).
-  9. the kernel table as one JSON line (launches counted through the
+  9. train: ``Trainer`` at ``ChoreConfig()``'s defaults (5 stacks, 256
+     features, 512^2, "mixed", batch 15 x 20,000 points) over the eval
+     phase's sequence preprocessed for both kinects (16 files, listed
+     as often as 22 batches take): 2 + 20 steps through the training
+     loader (8 threads, ``prefetch_to_device``, as ``train_model`` runs
+     them): ms/step, images/s, the loader's wait and the trainer's own
+     step, device peak, the loss trace (which must fall), and the same in
+     f32; a save -> load round trip (bitwise); one tiny f32 step on the
+     card against the CPU; then
+     ``python -m chore_tpu_torch.cli.train`` in a fresh process (one
+     epoch; a checkpoint and the val_min pointer). K1-K3 launch 0 times.
+     After every other phase, one release step under torch.profiler.
+ 10. the kernel table as one JSON line (launches counted through the
      demo, else the entry point; ``launches_by_path`` holds every path's
-     count), then the result line.
+     count, the training path's 0 included), then the result line.
 
-Opt-in phases: ``profile`` (where the fit's time goes, torch.profiler)
-and ``loader`` (``recon_fit`` over an 8-frame sequence with the serial prep
+Opt-in phases: ``profile`` (where the fit's time goes, torch.profiler),
+``loader`` (``recon_fit`` over an 8-frame sequence with the serial prep
 and with its 4-worker ``DataLoader``: s/frame of the frame loop, model
-loading excluded).
+loading excluded) and ``ddp`` (needs 2+ cards: the release training step
+on one card, then one process per card over NCCL each stepping its own
+release batch under DistributedDataParallel; images/s and the per-card
+rate against one card's; a DDP step of the tiny field against the
+gradient of the joined batch on one process).
 
-Needs a CUDA device; exits non-zero without one.
+Each phase's wall seconds are logged after it. Needs a CUDA device;
+exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -104,8 +122,9 @@ NN_DIST_TOL = 5e-5
 COV_REL_TOL = 1e-5
 COV_GRAD_REL_TOL = 1e-5
 
-PHASES = ("kernels", "field", "fit", "recon", "demo", "eval", "preprocess")
-OPT_IN = ("profile", "loader")
+PHASES = ("kernels", "field", "fit", "recon", "demo", "eval", "preprocess",
+          "train")
+OPT_IN = ("profile", "loader", "ddp")
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1381,7 +1400,8 @@ def write_behave_seq(torch, root):
     and a 2,048-face octasphere as GT fits; k0/k1 colour JPEGs (2,048 x
     1,536) and 16-bit depth PNGs (640 x 576); k1 object masks at a
     visible/full ratio of ~0.74; calibration (intrinsics, point-cloud
-    tables, poses). Reconstructions ``moved`` (the GT under RECON_SCALE,
+    tables, poses); person masks of both kinects and k0's object mask for
+    the training crop. Reconstructions ``moved`` (the GT under RECON_SCALE,
     RECON_ANGLE and RECON_T, plus 2 mm noise) and ``still`` (the same
     noise, no transform). Returns (seq, {variant: recon root})."""
     import json
@@ -1422,8 +1442,15 @@ def write_behave_seq(torch, root):
     yy, xx = np.mgrid[0:1536, 0:2048]
     full = ((xx - 1100) ** 2 + (yy - 800) ** 2 < 250 ** 2).astype(np.uint8)
     visible = full * (yy < 930)
+    person = ((np.abs(xx - 900) < 160) & (np.abs(yy - 760) < 420)).astype(
+        np.uint8)
     masks = {"k1.obj_rend_full.jpg": encode_jpeg(255 * full),
-             "k1.obj_rend_mask.jpg": encode_jpeg(255 * visible)}
+             "k1.obj_rend_mask.jpg": encode_jpeg(255 * visible),
+             # the training crop's masks (the evaluator reads k1's object
+             # masks only)
+             "k0.obj_rend_mask.jpg": encode_jpeg(255 * visible),
+             "k0.person_mask.jpg": encode_jpeg(255 * person),
+             "k1.person_mask.jpg": encode_jpeg(255 * person)}
 
     sm = synthetic_smplh()
     smplh = SMPLH(sm, device="cpu")
@@ -1758,19 +1785,451 @@ def run_preprocess(torch, dev, card, counters, seq, root):
     return result
 
 
-def run_cli(module, args, timeout):
+def run_cli(module, args, timeout, cwd=HERE):
     """``python -m module args`` in a fresh process, as a user runs it:
     wall seconds. Its output is shown if it fails."""
     env = dict(os.environ)
     env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=HERE,
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=cwd,
                           env=env, timeout=timeout, capture_output=True,
                           text=True)
     if proc.returncode != 0:
         log(proc.stdout[-4000:], proc.stderr[-8000:])
         raise SystemExit(f"{module} exited {proc.returncode}")
     return time.perf_counter() - t0
+
+
+# --------------------------------------------------------------------- #
+# phase 9: training at the release config, each precision through the
+# loader's 8 worker threads and prefetch_to_device: 2 warm-up steps, then
+# 20 timed ones
+TRAIN_WARMUP, TRAIN_STEPS = 2, 20
+# card vs CPU, one f32 step of the tiny field (tests/test_torch_port_cuda.py
+# ::test_train_step_on_card_matches_cpu): conv and grid_sample backward
+# sums in other orders (the latter with atomics), TF32 off
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+
+
+def tiny_train_batch(rng, B=2, N=300, S=32):
+    return {
+        "images": rng.randint(0, 256, (B, S, S, 5)).astype(np.uint8),
+        "points": (rng.rand(B, N, 3) * [1, 1, 0.5]
+                   + [-0.5, -0.5, 1.95]).astype(np.float32),
+        "crop_center": np.tile([[1018.0, 779.0]], (B, 1)).astype(np.float32),
+        "df_h": (np.abs(rng.randn(B, N)) * 0.1).astype(np.float32),
+        "df_o": (np.abs(rng.randn(B, N)) * 0.1).astype(np.float32),
+        "parts": rng.randint(0, 14, (B, N)).astype(np.int32),
+        "pca": rng.randn(B, 3, 3).astype(np.float32),
+        "body_center": np.tile([[0.0, 0, 2.2]], (B, 1)).astype(np.float32),
+        "obj_center": (0.3 * rng.randn(B, 3)).astype(np.float32)}
+
+
+def train_card_vs_cpu(torch, dev):
+    """One f32 step of the tiny field on the card and on the CPU: (loss
+    relative difference, worst gradient difference over its tensor's
+    largest)."""
+    from chore_tpu_torch.models.chore import FieldConfig, build_field
+    from chore_tpu_torch.train import Trainer
+
+    import tempfile
+
+    batch = tiny_train_batch(np.random.RandomState(0))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        with tempfile.TemporaryDirectory() as exp:
+            tr = Trainer(build_field(FieldConfig(num_stack=1,
+                                                 net_img_size=32),
+                                     device=d, seed=3, trainable=True),
+                         exp, ck_period_min=1e9)
+            loss, _ = tr.train_step(batch)
+            out.append((float(loss), {n: p.grad.cpu() for n, p in
+                                      tr.named_params}))
+    (lc, gc), (l0, g0) = out
+    grad = max(float((gc[n] - g).abs().max() / g.abs().max().clamp_min(
+        1e-30)) for n, g in g0.items())
+    return abs(lc - l0) / abs(l0), grad
+
+
+def write_train_split(torch, dev, seq, root, min_items):
+    """Preprocess every frame of ``seq`` for both kinects at the release
+    settings (the device backend), then write a split .pkl listing the
+    files as often as it takes to reach ``min_items`` for training and
+    once for validation."""
+    import pickle
+
+    from chore_tpu_torch.behave.readers import FrameDataReader, KinectTransform
+    from chore_tpu_torch.preprocess import BoundarySampler, process_scale_frame
+
+    reader, kin = FrameDataReader(seq), KinectTransform(seq)
+    sampler = BoundarySampler(seed=0, backend="device", device=dev)
+    out = os.path.join(root, "proc_train")
+    t0 = time.perf_counter()
+    files = [process_scale_frame(reader, kin, sampler, i, k, out, **PREP_KW)
+             for i in range(len(reader.frames)) for k in (0, 1)]
+    sec = time.perf_counter() - t0
+    if any(f is None for f in files):
+        raise SystemExit("train: a frame was not preprocessed")
+    split = os.path.join(root, "train_split.pkl")
+    with open(split, "wb") as f:
+        pickle.dump({"train": files * -(-min_items // len(files)),
+                     "test": files}, f)
+    return split, len(files), sec
+
+
+def loader_steps(torch, trainer, loader, warmup, steps):
+    """``warmup`` + ``steps`` steps over the loader through
+    ``prefetch_to_device`` (``Trainer.train_model``'s loop), timed over
+    the last ``steps``: (ms/step, loader wait ms/step, the trainer's own
+    ms/step from CUDA events around each step (its host work and its
+    device work, without the wait), losses, the last two batches as staged
+    on the card)."""
+    from chore_tpu_torch.data.loader import prefetch_to_device
+
+    def batches():
+        for b in loader:
+            b.pop("path")
+            yield b
+
+    it = prefetch_to_device(batches(), trainer.device)
+    losses, events, wait = [], [], 0.0
+    try:
+        for step in range(warmup + steps):
+            if step == warmup:
+                torch.cuda.synchronize()
+                t0, wait = time.perf_counter(), 0.0
+            w0 = time.perf_counter()
+            batch = next(it)
+            wait += time.perf_counter() - w0
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            losses.append(trainer.train_step(batch)[0])
+            e1.record()
+            events.append((e0, e1))
+            staged = (staged[-1], batch) if step else (batch,)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    finally:
+        it.close()
+    own = sum(e0.elapsed_time(e1) for e0, e1 in events[warmup:])
+    return (1e3 * sec / steps, 1e3 * wait / steps, own / steps, losses,
+            list(staged))
+
+
+def run_train(torch, dev, card, counters, seq, root):
+    """Training at the release config: ``Trainer`` at ``ChoreConfig()``'s
+    defaults (5 stacks, 256 features, 512^2, "mixed", batch 15 x 20,000
+    points) over the synthetic sequence preprocessed for both kinects,
+    8 worker threads and ``prefetch_to_device``: ms/step, images/s, device
+    peak, loader wait, the loss trace (which must fall); the same in f32;
+    a save -> load round trip; one tiny step on the card against the CPU;
+    then ``python -m chore_tpu_torch.cli.train`` in a fresh process.
+    Returns (result, a profiled-step closure)."""
+    from chore_tpu_torch.config import ChoreConfig, save_config
+    from chore_tpu_torch.data import BehaveTrainData, DataLoader, DataPaths
+    from chore_tpu_torch.models.chore import build_field
+    from chore_tpu_torch.train import Trainer
+
+    cfg = ChoreConfig()
+    B = cfg.batch_size
+    split, n_files, prep_s = write_train_split(
+        torch, dev, seq, root, min_items=(TRAIN_WARMUP + TRAIN_STEPS) * B)
+    log(f"  preprocessed {n_files} (frame, kinect) pairs for training in "
+        f"{prep_s:.2f} s")
+    train_paths, _ = DataPaths.load_splits(split)
+    ds = BehaveTrainData(train_paths, total_samplenum=cfg.num_samples_train,
+                         image_size=tuple(cfg.net_img_size),
+                         crop_size=cfg.loadSize, z0=cfg.z_0)
+    result = {}
+    for precision in ("mixed", "float32"):
+        c = ChoreConfig(precision=precision)
+        model = build_field(c.field_config(), device=dev, seed=0,
+                            trainable=True, encoder_dtype=c.encoder_dtype())
+        trainer = Trainer(model, os.path.join(root, f"exp_{precision}"),
+                          ck_period_min=1e9)
+        trainer.set_epoch_lr(0)
+        loader = DataLoader(ds, B, shuffle=True, num_workers=cfg.num_workers,
+                            drop_last=True)
+        for d, k in counters.values():
+            d[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, wait, own, losses, staged = loader_steps(
+            torch, trainer, loader, TRAIN_WARMUP, TRAIN_STEPS)
+        losses = [float(x) for x in losses]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {name: d[k] for name, (d, k) in counters.items()}
+        result[precision] = dict(
+            ms_per_step=ms, images_per_s=1e3 * B / ms,
+            loader_wait_ms_per_step=wait, trainer_ms_per_step=own,
+            device_peak_gib=peak, losses=losses, launches=launches)
+        log(f"  train {precision} (B={B}, {cfg.num_samples_train} points, "
+            f"{c.num_stack} stacks, {c.net_img_size[0]}^2) through the "
+            f"loader ({cfg.num_workers} threads, prefetch_to_device): "
+            f"{ms:.1f} ms/step, {1e3 * B / ms:.2f} images/s over "
+            f"{TRAIN_STEPS} steps after {TRAIN_WARMUP}; loader wait "
+            f"{wait:.1f} ms/step, the trainer's step {own:.1f} ms; device "
+            f"peak {peak:.2f} GiB [{card}]")
+        log(f"  loss trace: {[round(x, 3) for x in losses]}")
+        if not np.isfinite(losses).all():
+            raise SystemExit(f"train {precision}: a loss is not finite")
+        if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+            raise SystemExit(f"train {precision}: the loss did not fall "
+                             "(mean of the last 5 >= the first 5)")
+        if precision == "mixed":
+            # the checkpoint round trip, bitwise
+            trainer.epoch, trainer.training_time = 1, 12.5
+            t0 = time.perf_counter()
+            trainer.save()
+            save_s = time.perf_counter() - t0
+            again = Trainer(build_field(c.field_config(), device=dev, seed=1,
+                                        trainable=True,
+                                        encoder_dtype=c.encoder_dtype()),
+                            trainer.exp_dir, ck_period_min=1e9)
+            t0 = time.perf_counter()
+            if not again.load():
+                raise SystemExit("train: the checkpoint did not load")
+            load_s = time.perf_counter() - t0
+            same = all(torch.equal(a, b) for a, b in zip(
+                trainer.model.state_dict().values(),
+                again.model.state_dict().values()))
+            for (_, p), (_, q) in zip(trainer.named_params,
+                                      again.named_params):
+                sa, sb = trainer.opt.state[p], again.opt.state[q]
+                same &= all(torch.equal(sa[k].cpu(), sb[k].cpu())
+                            for k in sa)
+            if not same or again.global_step != trainer.global_step:
+                raise SystemExit("train: save -> load is not bitwise")
+            log(f"  checkpoint save {save_s:.2f} s, load {load_s:.2f} s, "
+                "parameters and Adam state bitwise equal")
+            result["checkpoint_s"] = {"save": save_s, "load": load_s}
+            del again
+        del model, trainer
+        torch.cuda.empty_cache()
+    rel, grad = train_card_vs_cpu(torch, dev)
+    log(f"  tiny f32 step card vs CPU: loss {rel:.3g} relative (tol "
+        f"{TRAIN_LOSS_RTOL}), gradients {grad:.3g} of each tensor's largest "
+        f"(tol {TRAIN_GRAD_TOL})")
+    if not (rel <= TRAIN_LOSS_RTOL and grad <= TRAIN_GRAD_TOL):
+        raise SystemExit("train: the card disagrees with the CPU")
+    result["card_vs_cpu"] = {"loss_rel": rel, "grad_rel": grad}
+    # the entry point in a fresh process, one epoch (2 steps, then the
+    # validation of 4 items and the val_min pointer), from a config in its
+    # directory
+    cli_dir = os.path.join(root, "cli_train")
+    save_config(ChoreConfig(exp_name="smoke-train", split_file=split),
+                os.path.join(cli_dir, "configs"))
+    with open(split, "rb") as f:
+        import pickle
+
+        data = pickle.load(f)
+    with open(split, "wb") as f:
+        pickle.dump({"train": data["test"] * 2, "test": data["test"][:4]},
+                    f)
+    cli_s = run_cli("chore_tpu_torch.cli.train",
+                    ["smoke-train", "--epochs", "1", "--exp-root", "exps"],
+                    timeout=600, cwd=cli_dir)
+    exp = os.path.join(cli_dir, "exps", "smoke-train")
+    ck = os.listdir(os.path.join(exp, "checkpoints"))
+    ptr = [p for p in os.listdir(exp) if p.startswith("val_min=")]
+    if len(ck) != 1 or ptr != ["val_min=1.npz"]:
+        raise SystemExit(f"train cli: checkpoints {ck}, pointer {ptr}")
+    log(f"  python -m chore_tpu_torch.cli.train (1 epoch of 2 steps, then "
+        f"validation over 4 items): {cli_s:.1f} s, wrote {ck[0]} and "
+        f"{ptr[0]}")
+    result["cli_s"] = cli_s
+
+    def profiled_step():
+        """One release step under torch.profiler (run after every other
+        phase: the profiler slows what runs after it)."""
+        import tempfile
+
+        c = ChoreConfig()
+        model = build_field(c.field_config(), device=dev, seed=0,
+                            trainable=True, encoder_dtype=c.encoder_dtype())
+        with tempfile.TemporaryDirectory() as exp:
+            tr = Trainer(model, exp, ck_period_min=1e9)
+            for b in staged[:2]:
+                tr.train_step(b)
+            return profile_call(torch, lambda: tr.train_step(staged[0]))
+
+    return result, profiled_step
+
+
+def profile_call(torch, fn):
+    """``fn()`` under torch.profiler: wall ms, device busy share, and the
+    top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy,
+            "busy_share": busy / (1e3 * wall),
+            "launches": sum(e.count for e in kernels),
+            "top": [(e.key[:80], round(dev_us(e) / 1e3, 3), e.count)
+                    for e in top]}
+
+
+# --------------------------------------------------------------------- #
+# optional phase: data-parallel training over every card of the host
+DDP_STEPS = 10  # timed, after 2 warm-up steps, at the release shape
+DDP_B, DDP_N, DDP_S = 15, 20000, 512  # per card: the release batch
+
+
+def release_batch(torch, dev, seed):
+    """A random batch at the release shape, on ``dev``."""
+    b = tiny_train_batch(np.random.RandomState(seed), B=DDP_B, N=DDP_N,
+                         S=DDP_S)
+    return {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+
+
+def timed_steps(torch, trainer, batch, warmup=2, steps=DDP_STEPS):
+    for _ in range(warmup):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps
+
+
+def ddp_worker(out, device=None):
+    """One rank of the ddp phase (RANK, WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT and LOCAL_RANK from the environment): one DDP step of the
+    tiny f32 field on its slice of a joined batch against the gradient of
+    the joined batch on an unwrapped copy; ``sync_decision``; then the
+    release "mixed" step on its own random batch (ms/step)."""
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    from chore_tpu_torch.models.chore import (FieldConfig, build_field,
+                                              chore_losses)
+    from chore_tpu_torch.parallel import (init_distributed,
+                                          local_batch_slice, process_count,
+                                          process_index, sync_decision)
+    from chore_tpu_torch.train import Trainer
+
+    dev = init_distributed(device=device)
+    rank, world = process_index(), process_count()
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else (lambda: None))
+    cfg = FieldConfig(num_stack=1, net_img_size=32)
+    joined = {k: torch.as_tensor(v).to(dev) for k, v in tiny_train_batch(
+        np.random.RandomState(0), B=2 * world).items()}
+    ref = build_field(cfg, device=dev, seed=3, trainable=True)
+    ref_loss, _ = chore_losses(ref(joined["images"], joined["points"],
+                                   joined["crop_center"]), joined, cfg)
+    ref_loss.backward()
+    with tempfile.TemporaryDirectory() as exp:
+        tr = Trainer(build_field(cfg, device=dev, seed=3, trainable=True),
+                     exp, optimizer="adadelta")
+        part = local_batch_slice(2 * world)
+        loss, _ = tr.train_step({k: v[part] for k, v in joined.items()})
+        grads = dict(ref.named_parameters())
+        grad = max(float((p.grad - grads[n].grad).abs().max()
+                         / grads[n].grad.abs().max().clamp_min(1e-30))
+                   for n, p in tr.named_params)
+        res = {"rank": rank, "world": world,
+               "loss_rel": abs(float(loss) - float(ref_loss))
+               / abs(float(ref_loss)), "grad_rel": grad,
+               "decision": sync_decision(rank == 0)}
+        if dev.type == "cuda":
+            c = FieldConfig()
+            big = Trainer(build_field(c, device=dev, seed=0, trainable=True,
+                                      encoder_dtype=torch.bfloat16),
+                          exp, ck_period_min=1e9)
+            res["ms_per_step"] = timed_steps(
+                torch, big, release_batch(torch, dev, 100 + rank))
+            res["device_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    sync()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def run_ddp(torch, card, device=None, world=None):
+    """Data-parallel training on every card of the host (one process
+    each, NCCL): the release step on one card alone (this process), then
+    ``world`` ranks each stepping the release batch; DDP's gradients
+    against one process's on the joined batch (tiny field, f32)."""
+    import socket
+    import tempfile
+
+    world = world or torch.cuda.device_count()
+    if world < 2:
+        raise SystemExit("ddp: needs two or more cards")
+    one = None
+    if device is None:
+        from chore_tpu_torch.models.chore import FieldConfig, build_field
+        from chore_tpu_torch.train import Trainer
+
+        dev = torch.device("cuda:0")
+        with tempfile.TemporaryDirectory() as exp:
+            tr = Trainer(build_field(FieldConfig(), device=dev, seed=0,
+                                     trainable=True,
+                                     encoder_dtype=torch.bfloat16),
+                         exp, ck_period_min=1e9)
+            one = timed_steps(torch, tr, release_batch(torch, dev, 100))
+        del tr
+        torch.cuda.empty_cache()
+        log(f"  one card: {one:.1f} ms/step, {1e3 * DDP_B / one:.2f} "
+            f"images/s (mixed, B={DDP_B}) [{card}]")
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out:
+        procs = []
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                       WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port))
+            env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ddp-worker",
+                 out] + (["--ddp-device", device] if device else []),
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        for p in procs:
+            text, _ = p.communicate(timeout=900)
+            if p.returncode != 0:
+                log(text[-6000:])
+                raise SystemExit(f"ddp: a rank exited {p.returncode}")
+        ranks = [json.load(open(os.path.join(out, f"rank{r}.json")))
+                 for r in range(world)]
+    worst = max(max(r["loss_rel"], r["grad_rel"]) for r in ranks)
+    log(f"  {world} ranks: DDP step vs the joined batch, loss and gradients "
+        f"within {worst:.3g} of the largest (tol {TRAIN_GRAD_TOL}); "
+        f"sync_decision {[r['decision'] for r in ranks]}")
+    if not worst <= TRAIN_GRAD_TOL or not all(r["decision"] for r in ranks):
+        raise SystemExit("ddp: the data-parallel step disagrees")
+    result = {"world": world, "one_card_ms_per_step": one, "ranks": ranks}
+    if one is not None:
+        ms = max(r["ms_per_step"] for r in ranks)
+        result.update(ms_per_step=ms, images_per_s=1e3 * world * DDP_B / ms,
+                      scaling=one / ms)
+        log(f"  {world} cards: {ms:.1f} ms/step, {1e3 * world * DDP_B / ms:.2f} "
+            f"images/s, {one / ms:.3f} of one card's per-card rate, device "
+            f"peak {max(r['device_peak_gib'] for r in ranks):.2f} GiB "
+            f"[{card}]")
+    return result
 
 
 # --------------------------------------------------------------------- #
@@ -1848,9 +2307,15 @@ def main(argv=None):
                     help="comma-separated subset of "
                     + ",".join(PHASES + OPT_IN)
                     + " (" + " and ".join(OPT_IN) + " are off by default)")
+    ap.add_argument("--ddp-worker", default=None, metavar="DIR",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--ddp-device", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None,
                     help="directory to write the full profile table to")
     args = ap.parse_args(argv)
+    if args.ddp_worker:
+        ddp_worker(args.ddp_worker, args.ddp_device)
+        return 0
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES + OPT_IN)
     if unknown:
@@ -1874,6 +2339,15 @@ def main(argv=None):
     dev = torch.device("cuda:0")
     use_full_f32()
     card = card_line()
+    started = [time.perf_counter(), "setup"]
+
+    def phase(name):
+        """Log the previous phase's wall seconds, then this one's name."""
+        now = time.perf_counter()
+        log(f"  [{started[1]}: {now - started[0]:.1f} s]")
+        started[:] = [now, name]
+        log(f"phase {name}:")
+
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -1887,6 +2361,14 @@ def main(argv=None):
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  nvcc[{name}] {line.strip()}")
+    # the host image library (g++: JPEG decode stages, uint8 resize), so
+    # no decode below times its build
+    from chore_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.image_lib()
+    log(f"build: host image library (csrc/image.cpp, g++) "
+        f"{time.perf_counter() - t0:.2f} s")
 
     from chore_tpu_torch.ops import silhouette as sil_mod
 
@@ -1911,7 +2393,7 @@ def main(argv=None):
                 "coverage_bwd": (sil_mod.launches, "coverage_bwd")}
 
     if "kernels" in phases:
-        log("phase kernels:")
+        phase("kernels")
         kernels["nn_grouped"]["max_abs_err"] = check_nn(torch, dev)
         nn_shapes = time_nn(torch, dev, card)
         row = dict(nn_shapes["joint_step"])  # the main path's call
@@ -1927,25 +2409,25 @@ def main(argv=None):
         log(json.dumps({"coverage_shapes": shapes, "card": card}))
 
     if "field" in phases:
-        log("phase field:")
+        phase("field")
         run_field(torch, dev, card)
 
     if "fit" in phases:
-        log("phase fit:")
+        phase("fit")
         fit = run_fit(torch, dev, card, counters)
         for name in kernels:  # the fitter's path: the default fit, sil on
             kernels[name]["launches"] = fit["sil"]["launches"][name]
             paths[name]["fit"] = fit["sil"]["launches"][name]
 
     if "recon" in phases:
-        log("phase recon:")
+        phase("recon")
         recon = run_recon(torch, dev, card, counters)
         for name in kernels:  # the release entry point
             kernels[name]["launches"] = recon["api"]["launches"][name]
             paths[name]["recon"] = recon["api"]["launches"][name]
 
     if "demo" in phases:
-        log("phase demo:")
+        phase("demo")
         demo, raster_calls = run_demo_phase(torch, dev, card, counters)
         for name in kernels:  # the main path: the demo
             kernels[name]["launches"] = demo["launches"][name]
@@ -1953,41 +2435,60 @@ def main(argv=None):
 
     import tempfile
 
+    train_profile = None
     with tempfile.TemporaryDirectory() as data_root:
         seq = None
         if "eval" in phases:
-            log("phase eval:")
+            phase("eval")
             ev, seq = run_eval(torch, dev, card, counters, data_root)
             paths["nn_grouped"]["eval"] = ev["launches"]
         if "preprocess" in phases:
-            log("phase preprocess:")
+            phase("preprocess")
             if seq is None:
                 seq = write_behave_seq(torch, data_root)[0]
             prep = run_preprocess(torch, dev, card, counters, seq, data_root)
             paths["nn_grouped"]["preprocess"] = prep["device"]["launches"]
             paths["nn_grouped"]["preprocess_cli"] = prep["cli_launches"]
+        if "train" in phases:
+            phase("train")
+            if seq is None:
+                seq = write_behave_seq(torch, data_root)[0]
+            train, train_profile = run_train(torch, dev, card, counters, seq,
+                                              data_root)
+            for name in kernels:  # the training path reaches no kernel
+                paths[name]["train"] = train["mixed"]["launches"][name]
+            log(json.dumps({"train": train, "card": card}))
     for name in kernels:
         kernels[name]["launches_by_path"] = paths[name]
 
+    if "ddp" in phases:
+        phase("ddp")
+        log(json.dumps({"ddp": run_ddp(torch, card), "card": card}))
+
     if "loader" in phases:
-        log("phase loader:")
+        phase("loader")
         log(json.dumps({"loader_s_per_frame": loader_comparison(
             torch, dev, card), "card": card}))
 
     # last: the torch.profiler sessions (they slow what runs after them)
     if "recon" in phases:
-        log("phase recon (profiled):")
+        phase("recon (profiled)")
         log(json.dumps({"recon_encoder": encoder_precisions(torch, dev, card),
                         "card": card}))
     if "demo" in phases:
-        log("phase demo (profiled):")
+        phase("demo (profiled)")
         log(json.dumps({"demo_hard_rasterize": profile_hard_rasterize(
             torch, raster_calls, card), "card": card}))
+    if train_profile is not None:
+        phase("train (profiled)")
+        log(json.dumps({"train_step_profile": train_profile(),
+                        "card": card}))
 
     if "profile" in phases:
-        log("phase profile:")
+        phase("profile")
         run_profile(torch, dev, card, args.out)
 
+    phase("end")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

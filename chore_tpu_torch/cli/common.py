@@ -14,13 +14,14 @@ from chore_tpu_torch.train.checkpoints import find_checkpoint, load_checkpoint
 from chore_tpu_torch.utils.meshio import octasphere
 
 
-def build_model(cfg: ChoreConfig, device=None, state_dict=None, seed=0):
+def build_model(cfg: ChoreConfig, device=None, state_dict=None, seed=0,
+                trainable=False):
     """The CHORE field at the config's widths and encoder precision, on
     ``device`` (the card unless "cpu"); seeded random weights unless
-    ``state_dict``."""
+    ``state_dict``; frozen unless ``trainable``."""
     return build_field(cfg.field_config(), device=device, seed=seed,
                        state_dict=state_dict,
-                       encoder_dtype=cfg.encoder_dtype())
+                       encoder_dtype=cfg.encoder_dtype(), trainable=trainable)
 
 
 def load_trained(cfg: ChoreConfig, exp_root="experiments", device=None):

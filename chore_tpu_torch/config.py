@@ -69,14 +69,15 @@ class ChoreConfig:
         return torch.bfloat16 if self.precision == "mixed" else torch.float32
 
     def field_config(self) -> FieldConfig:
-        """The port's FieldConfig (its training-loss fields, clamp_thres and
-        remat, come with the training slice)."""
         return FieldConfig(
             num_stack=self.num_stack,
             num_hourglass=self.num_hourglass,
             hourglass_dim=self.hourglass_dim,
             crop_size=self.loadSize,
+            net_img_size=self.net_img_size[0],
             z0=self.z_0,
+            clamp_thres=self.clamp_thres,
+            remat=self.remat,
         )
 
     def sampler_config(self, num_points=5000) -> SamplerConfig:

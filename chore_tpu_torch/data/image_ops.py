@@ -14,6 +14,7 @@ import os.path as osp
 
 import numpy as np
 
+from chore_tpu_torch import native
 from chore_tpu_torch.data.imageio import read_gray, read_rgb
 
 
@@ -41,15 +42,50 @@ def load_masks(rgb_file, flip=False):
     return person, obj
 
 
-def load_rgb(rgb_file, flip=False, blur_sigma=0.0):
-    if blur_sigma > 1e-6:
-        raise NotImplementedError(
-            "the blur augmentation is a training-time option and comes with "
-            "the training slice of the port")
+def load_rgb(rgb_file, flip=False, blur_sigma=0.0, rng=None):
+    """The RGB photo, mirrored if ``flip``; with ``blur_sigma`` > 0 blurred
+    by a Gaussian of sigma ``rng.uniform(0, blur_sigma) * 255`` (the
+    training augmentation)."""
     rgb = read_rgb(rgb_file)
     if flip:
         rgb = rgb[:, ::-1]
+    if blur_sigma > 1e-6:
+        rng = rng or np.random
+        s = float(rng.uniform(0, blur_sigma)) * 255.0
+        if s > 0:
+            rgb = gaussian_blur_u8(rgb, int(2 * round(3 * s) + 1), s)
     return rgb
+
+
+def gaussian_kernel_u8(ksize, sigma):
+    """OpenCV's 8-bit Gaussian kernel: the sampled, normalised Gaussian
+    in units of 1/256, rounded from the outer taps inward with the
+    rounding error carried to the next tap, the centre tap making the sum
+    exactly 256."""
+    half = (ksize - 1) // 2
+    d = np.arange(half, dtype=np.float64) - half
+    side = np.exp(-(d * d) / (2.0 * sigma * sigma))
+    side /= 2.0 * side.sum() + 1.0
+    taps, err = [], 0.0
+    for x in side:
+        adj = x * 256.0 + err
+        v = int(np.rint(adj))
+        err = adj - v
+        taps.append(v)
+    return np.array(taps + [256 - 2 * sum(taps)] + taps[::-1], np.int64)
+
+
+def gaussian_blur_u8(img, ksize, sigma):
+    """``cv2.GaussianBlur(img, (ksize, ksize), sigma)`` of a uint8 image, as
+    OpenCV's fixed-point path computes it: the 8-bit kernel along rows,
+    then columns (exact integer sums), rounded once from 16 fractional
+    bits; BORDER_REFLECT_101 edges."""
+    from scipy.ndimage import correlate1d
+
+    w = gaussian_kernel_u8(ksize, sigma)
+    acc = correlate1d(img.astype(np.int64), w, axis=1, mode="mirror")
+    acc = correlate1d(acc, w, axis=0, mode="mirror")
+    return ((acc + (1 << 15)) >> 16).astype(np.uint8)
 
 
 def masks2bbox(masks, thres=127):
@@ -147,17 +183,17 @@ def resize_linear(img, size):
     wx0, wy0 = wt(1.0) - fx, wt(1.0) - fy
     extra = (1,) * (img.ndim - 2)
     if u8:
-        ax0 = np.rint(wx0 * 2048).astype(np.int64).reshape(1, -1, *extra)
-        ax1 = np.rint(fx * 2048).astype(np.int64).reshape(1, -1, *extra)
-        by0 = np.rint(wy0 * 2048).astype(np.int64).reshape(-1, 1, *extra)
-        by1 = np.rint(fy * 2048).astype(np.int64).reshape(-1, 1, *extra)
-        x = img.astype(np.int64)
-        rows = x[:, sx] * ax0 + x[:, sx1] * ax1  # (h, out_w, ...)
-        # one-tap columns at the right edge: S[sx] * 2048
-        rows[:, hi] = x[:, sx[hi]] * 2048
-        s0, s1 = rows[sy0] >> 4, rows[sy1] >> 4
-        return ((((by0 * s0) >> 16) + ((by1 * s1) >> 16) + 2) >> 2).astype(
-            np.uint8)
+        # one-tap columns at the right edge (fx = 0) weigh S[sx] by 2048
+        taps = [np.ascontiguousarray(t, np.int64) for t in (
+            sx, sx1, np.rint(wx0 * 2048), np.rint(fx * 2048),
+            sy0, sy1, np.rint(wy0 * 2048), np.rint(fy * 2048))]
+        src = np.ascontiguousarray(img)
+        out = np.empty((out_h, out_w) + img.shape[2:], np.uint8)
+        native.image_lib().resize_u8(
+            src.ctypes.data, h, w, int(np.prod(img.shape[2:])),
+            *[t.ctypes.data for t in taps[:4]], out_w,
+            *[t.ctypes.data for t in taps[4:]], out_h, out.ctypes.data)
+        return out
     x = img.astype(np.float64)
     rows = (x[:, sx] * wx0.reshape(1, -1, *extra)
             + x[:, sx1] * fx.reshape(1, -1, *extra))

@@ -43,16 +43,23 @@ image): baseline JPEG as libjpeg-turbo writes it at OpenCV's defaults
 (quality 95, 4:2:0, standard Huffman tables, JFIF), and PNG (also of a
 uint16 image, 16-bit samples).
 
-The Huffman decode is a Python loop over the coded symbols; the rest,
-the JPEG encoder's entropy stage included, is vectorised numpy.
+A sequential scan's Huffman decode, the IDCT, the upsampling and the
+colour conversion run in ``csrc/image.cpp`` (``native.image_lib``, built
+with g++ on first use; a call releases the GIL, so loader threads decode
+at once); a progressive scan's Huffman decode is a Python loop over
+the coded symbols. The rest, the JPEG encoder's entropy stage included, is
+vectorised numpy.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 import struct
 import zlib
 
 import numpy as np
+
+from chore_tpu_torch import native
 
 JPEG_MAGIC = b"\xff\xd8\xff"
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
@@ -214,6 +221,7 @@ _NATURAL = [
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
 ] + [63] * 16
+_NATURAL_I32 = np.asarray(_NATURAL, np.int32)
 
 _UNSUPPORTED_SOF = {
     0xC3: "lossless", 0xC5: "hierarchical",
@@ -225,12 +233,18 @@ _UNSUPPORTED_SOF = {
 }
 
 
+# jpeg_decode_scan's error codes
+_SCAN_ERRORS = {1: "missing restart marker",
+                2: "corrupt or truncated entropy-coded data",
+                3: "corrupt entropy-coded data (a coefficient out of range)"}
+
+
 def _huffman_lut(counts, symbols):
-    """16-bit lookahead tables (symbol, code length) of a canonical Huffman
-    table; a code that is not in the table decodes as symbol 0, length 16
-    (libjpeg's "bad Huffman code" recovery)."""
-    sym = np.zeros(1 << 16, np.int64)
-    length = np.full(1 << 16, 16, np.int64)
+    """16-bit lookahead tables (symbol, code length), int32, of a canonical
+    Huffman table; a code that is not in the table decodes as symbol 0,
+    length 16 (libjpeg's "bad Huffman code" recovery)."""
+    sym = np.zeros(1 << 16, np.int32)
+    length = np.full(1 << 16, 16, np.int32)
     code, k = 0, 0
     for ln in range(1, 17):
         for _ in range(counts[ln - 1]):
@@ -241,7 +255,7 @@ def _huffman_lut(counts, symbols):
             code += 1
             k += 1
         code <<= 1
-    return sym.tolist(), length.tolist()
+    return sym, length
 
 
 def _bit_windows(stream):
@@ -436,93 +450,60 @@ class _Jpeg:
 
     def _layout(self, scan):
         """Per MCU, its blocks as (slot in the scan, flat coefficient
-        offset): one block per MCU over a lone component's own (unpadded)
-        block grid, else the interleaved MCUs of the frame."""
+        offset), a (MCUs, blocks per MCU, 2) int64 array: one block per MCU
+        over a lone component's own (unpadded) block grid, else the
+        interleaved MCUs of the frame."""
         comps = self.comps
         if len(scan) == 1:
             c = comps[scan[0][0]]
             nbw, nbh = -(-c.width // 8), -(-c.height // 8)
-            return [[(0, (by * c.bw + bx) * 64)]
-                    for by in range(nbh) for bx in range(nbw)]
-        layout = []
-        for my in range(self.mcuy):
-            for mx in range(self.mcux):
-                mcu = []
-                for slot, (ci, _, _) in enumerate(scan):
-                    c = comps[ci]
-                    for y in range(c.v):
-                        for x in range(c.h):
-                            b = (my * c.v + y) * c.bw + mx * c.h + x
-                            mcu.append((slot, b * 64))
-                layout.append(mcu)
-        return layout
+            base = (np.arange(nbh)[:, None] * c.bw
+                    + np.arange(nbw)[None, :]).reshape(-1, 1) * 64
+            return np.ascontiguousarray(
+                np.stack([np.zeros_like(base), base], -1), np.int64)
+        my = np.arange(self.mcuy)[:, None]
+        mx = np.arange(self.mcux)[None, :]
+        cols = []
+        for slot, (ci, _, _) in enumerate(scan):
+            c = comps[ci]
+            for y in range(c.v):
+                for x in range(c.h):
+                    b = ((my * c.v + y) * c.bw + mx * c.h + x).reshape(-1)
+                    cols.append(np.stack([np.full_like(b, slot), b * 64], -1))
+        return np.ascontiguousarray(np.stack(cols, 1), np.int64)
 
     def _tables(self, scan, dc=True, ac=True):
+        """Per scan slot: (DC symbols, DC lengths, AC symbols, AC lengths),
+        each a 65536-entry int32 lookahead table (empty where not used)."""
+        empty = np.zeros(0, np.int32)
         tables = []
         for _, td, ta in scan:
             if (dc and td not in self.dc_tables) or (
                     ac and ta not in self.ac_tables):
                 self._fail("scan uses an undefined Huffman table")
-            tables.append((self.dc_tables[td] if dc else ([], []))
-                          + (self.ac_tables[ta] if ac else ([], [])))
+            tables.append((self.dc_tables[td] if dc else (empty, empty))
+                          + (self.ac_tables[ta] if ac else (empty, empty)))
         return tables
 
     def _decode_scan(self, scan, stream, starts):
-        """Huffman-decode one sequential scan's blocks into ``self.coef``."""
+        """Huffman-decode one sequential scan's blocks into ``self.coef``
+        (``csrc/image.cpp``)."""
+        if len(scan) > 4:
+            self._fail(f"{len(scan)} components in one scan (at most 4)")
         layout = self._layout(scan)
-        tables = self._tables(scan)
-        w = _bit_windows(stream)
-        nat = _NATURAL
-        idx = [[] for _ in scan]
-        val = [[] for _ in scan]
-        preds = [0] * len(scan)
-        interval = self.restart or len(layout)
-        seg = 0
-        p = 0
-        for m, mcu in enumerate(layout):
-            if m % interval == 0:
-                if seg >= len(starts):
-                    self._fail("missing restart marker")
-                p = 8 * starts[seg]
-                seg += 1
-                preds = [0] * len(scan)
-            for slot, base in mcu:
-                dsym, dlen, asym, alen = tables[slot]
-                ix, vx = idx[slot], val[slot]
-                v = (w[p >> 3] >> (40 - (p & 7))) & 0xFFFF
-                s = dsym[v]
-                p += dlen[v]
-                if s:
-                    x = (w[p >> 3] >> (56 - (p & 7) - s)) & ((1 << s) - 1)
-                    p += s
-                    if x < (1 << (s - 1)):
-                        x -= (1 << s) - 1
-                    preds[slot] += x
-                ix.append(base)
-                vx.append(preds[slot])
-                k = 1
-                while k < 64:
-                    v = (w[p >> 3] >> (40 - (p & 7))) & 0xFFFF
-                    rs = asym[v]
-                    p += alen[v]
-                    r = rs & 15
-                    if r:
-                        k += rs >> 4
-                        x = (w[p >> 3] >> (56 - (p & 7) - r)) & ((1 << r) - 1)
-                        p += r
-                        if x < (1 << (r - 1)):
-                            x -= (1 << r) - 1
-                        ix.append(base + nat[k])
-                        vx.append(x)
-                        k += 1
-                    elif rs == 0xF0:
-                        k += 16
-                    else:
-                        break
-        for slot, (ci, _, _) in enumerate(scan):
-            flat = self.coef[ci].reshape(-1)
-            flat[np.asarray(idx[slot], np.int64)] = np.asarray(val[slot],
-                                                               np.int32)
+        luts = np.ascontiguousarray(np.stack(
+            [np.stack(t) for t in self._tables(scan)]), np.int32)
+        data = np.frombuffer(stream + bytes(8), np.uint8)
+        starts = np.asarray(starts, np.int64)
+        coef = (ctypes.c_void_p * len(scan))(
+            *[self.coef[ci].ctypes.data for ci, _, _ in scan])
+        rc = native.image_lib().jpeg_decode_scan(
+            data.ctypes.data, len(stream), starts.ctypes.data, len(starts),
+            self.restart or len(layout), layout.shape[0], layout.shape[1],
+            layout.ctypes.data, luts.ctypes.data, coef,
+            _NATURAL_I32.ctypes.data)
+        if rc:
+            self._fail(_SCAN_ERRORS[rc])
 
     def _decode_progressive(self, scan, ss, se, ah, al, stream, starts):
         """One progressive scan (``jdphuff.c``): a DC first or refinement
@@ -533,9 +514,10 @@ class _Jpeg:
         if se > 63 or ss > se or (ss == 0 and se != 0) or (
                 ss > 0 and len(scan) != 1):
             self._fail(f"bad progressive scan parameters Ss={ss} Se={se}")
-        layout = self._layout(scan)
+        layout = self._layout(scan).tolist()
         dc = ss == 0
-        tables = self._tables(scan, dc=dc and ah == 0, ac=not dc)
+        tables = [tuple(t.tolist() for t in ts) for ts in self._tables(
+            scan, dc=dc and ah == 0, ac=not dc)]
         coefs = [self.coef[ci] for ci, _, _ in scan]
         w = _bit_windows(stream)
         nat = _NATURAL
@@ -669,74 +651,19 @@ class _Jpeg:
         q = self.quant.get(c.tq)
         if q is None:
             self._fail(f"undefined quantization table {c.tq}")
-        blocks = self.coef[ci].reshape(-1, 64)
-        out = np.empty((blocks.shape[0], 64), np.uint8)
-        for s in range(0, blocks.shape[0], 4096):
-            out[s:s + 4096] = _idct_islow(blocks[s:s + 4096], q)
-        img = out.reshape(c.bh, c.bw, 8, 8).transpose(0, 2, 1, 3)
-        return img.reshape(c.bh * 8, c.bw * 8)[:c.height, :c.width]
+        blocks = np.ascontiguousarray(self.coef[ci], np.int32)
+        q = np.ascontiguousarray(q, np.int64)
+        out = np.empty((c.bh * 8, c.bw * 8), np.uint8)
+        # dequantize, jidctint.c's ISLOW IDCT and the range limit
+        native.image_lib().jpeg_idct_islow(
+            blocks.ctypes.data, q.ctypes.data, c.bh, c.bw, out.ctypes.data)
+        return out[:c.height, :c.width]
 
 
-# jidctint.c / jfdctint.c constants (CONST_BITS 13)
+# jfdctint.c constants (CONST_BITS 13)
 _F = dict(f0298=2446, f0390=3196, f0541=4433, f0765=6270, f0899=7373,
           f1175=9633, f1501=12299, f1847=15137, f1961=16069, f2053=16819,
           f2562=20995, f3072=25172)
-
-
-def _idct_1d(x, shift):
-    """One pass of jidctint.c's ISLOW IDCT along the second-to-last axis of
-    ``x`` (..., 8, 8), descaled by ``shift`` bits with rounding."""
-    F = _F
-    z2, z3 = x[..., 2, :], x[..., 6, :]
-    z1 = (z2 + z3) * F["f0541"]
-    tmp2 = z1 + z3 * -F["f1847"]
-    tmp3 = z1 + z2 * F["f0765"]
-    tmp0 = (x[..., 0, :] + x[..., 4, :]) << 13
-    tmp1 = (x[..., 0, :] - x[..., 4, :]) << 13
-    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
-    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
-    t0, t1, t2, t3 = x[..., 7, :], x[..., 5, :], x[..., 3, :], x[..., 1, :]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
-    z5 = (z3 + z4) * F["f1175"]
-    t0 = t0 * F["f0298"]
-    t1 = t1 * F["f2053"]
-    t2 = t2 * F["f3072"]
-    t3 = t3 * F["f1501"]
-    z1 = z1 * -F["f0899"]
-    z2 = z2 * -F["f2562"]
-    z3 = z3 * -F["f1961"] + z5
-    z4 = z4 * -F["f0390"] + z5
-    t0 += z1 + z3
-    t1 += z2 + z4
-    t2 += z2 + z3
-    t3 += z1 + z4
-    half = 1 << (shift - 1)
-    rows = (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
-            tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)
-    return np.stack([(r + half) >> shift for r in rows], axis=-2)
-
-
-def _idct_range_limit():
-    """libjpeg's post-IDCT range-limit table (jdmaster.c), indexed by
-    ``value & 1023``: [0, 128) -> value + 128, [128, 512) -> 255,
-    [512, 896) -> 0, [896, 1024) -> value - 896."""
-    t = np.zeros(1024, np.uint8)
-    t[:128] = np.arange(128, 256)
-    t[128:512] = 255
-    t[896:] = np.arange(128)
-    return t
-
-
-_RANGE = _idct_range_limit()
-
-
-def _idct_islow(blocks, q):
-    """(N, 64) quantized coefficients (natural order) -> (N, 64) uint8
-    samples: dequantize, columns (PASS1_BITS 2), then rows."""
-    x = (blocks.astype(np.int64) * q).reshape(-1, 8, 8)
-    ws = _idct_1d(x, 13 - 2)  # pass 1 over columns
-    out = _idct_1d(ws.swapaxes(-1, -2), 13 + 2 + 3).swapaxes(-1, -2)
-    return _RANGE[out & 1023].reshape(-1, 64)
 
 
 def _upsample(plane, c, jpg):
@@ -744,59 +671,20 @@ def _upsample(plane, c, jpg):
     upsampler does: the fancy triangle filters for 2:1 ratios, else
     replication (``int_upsample``, also for planes too narrow for the
     fancy filters); edge samples replicate the last real one."""
-    fh, fv = jpg.hmax // c.h, jpg.vmax // c.v
-    x = plane.astype(np.int32)
-    dw = x.shape[1]
-    if fh == 2 and fv == 2 and dw > 2:  # h2v2_fancy_upsample
-        up = np.concatenate([x[:1], x[:-1]], 0)
-        down = np.concatenate([x[1:], x[-1:]], 0)
-        rows = np.empty((2 * x.shape[0], dw), np.int32)
-        rows[0::2] = 3 * x + up
-        rows[1::2] = 3 * x + down
-        left = np.concatenate([rows[:, :1], rows[:, :-1]], 1)
-        right = np.concatenate([rows[:, 1:], rows[:, -1:]], 1)
-        out = np.empty((rows.shape[0], 2 * dw), np.int32)
-        out[:, 0::2] = (3 * rows + left + 8) >> 4
-        out[:, 1::2] = (3 * rows + right + 7) >> 4
-    elif fh == 2 and fv == 1 and dw > 2:  # h2v1_fancy_upsample
-        left = np.concatenate([x[:, :1], x[:, :-1]], 1)
-        right = np.concatenate([x[:, 1:], x[:, -1:]], 1)
-        out = np.empty((x.shape[0], 2 * dw), np.int32)
-        out[:, 0::2] = (3 * x + left + 1) >> 2
-        out[:, 1::2] = (3 * x + right + 2) >> 2
-    elif fh == 1 and fv == 2:  # h1v2_fancy_upsample
-        up = np.concatenate([x[:1], x[:-1]], 0)
-        down = np.concatenate([x[1:], x[-1:]], 0)
-        out = np.empty((2 * x.shape[0], dw), np.int32)
-        out[0::2] = (3 * x + up + 1) >> 2
-        out[1::2] = (3 * x + down + 2) >> 2
-    else:  # 1:1, other integer ratios, or too narrow: replicate
-        out = np.repeat(np.repeat(x, fv, 0), fh, 1)
-    return out[:jpg.height, :jpg.width].astype(np.uint8)
-
-
-def _ycc_tables():
-    """jdcolor.c's build_ycc_rgb_table (SCALEBITS 16)."""
-    one_half = 1 << 15
-    fix = lambda v: int(v * (1 << 16) + 0.5)  # noqa: E731
-    x = np.arange(256, dtype=np.int64) - 128
-    cr_r = (fix(1.40200) * x + one_half) >> 16
-    cb_b = (fix(1.77200) * x + one_half) >> 16
-    cr_g = -fix(0.71414) * x
-    cb_g = -fix(0.34414) * x + one_half
-    return cr_r, cb_b, cr_g, cb_g
-
-
-_YCC = _ycc_tables()
+    plane = np.ascontiguousarray(plane, np.uint8)
+    out = np.empty((jpg.height, jpg.width), np.uint8)
+    native.image_lib().jpeg_upsample(
+        plane.ctypes.data, *plane.shape, jpg.hmax // c.h, jpg.vmax // c.v,
+        out.ctypes.data, *out.shape)
+    return out
 
 
 def _ycc_to_rgb(y, cb, cr):
-    cr_r, cb_b, cr_g, cb_g = _YCC
-    y = y.astype(np.int64)
-    r = y + cr_r[cr]
-    g = y + ((cb_g[cb] + cr_g[cr]) >> 16)
-    b = y + cb_b[cb]
-    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+    """jdcolor.c's YCbCr -> RGB of three full-size planes: (H, W, 3)."""
+    out = np.empty(y.shape + (3,), np.uint8)
+    native.image_lib().jpeg_ycc_to_rgb(
+        y.ctypes.data, cb.ctypes.data, cr.ctypes.data, y.size, out.ctypes.data)
+    return out
 
 
 # --------------------------------------------------------------------- #

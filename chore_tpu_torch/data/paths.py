@@ -7,13 +7,14 @@ optional occlusion filtering, and the FrankMocap / openpose sidecar files
 are read. ``PATHS.yml`` is read by a parser of the flat ``KEY: value  #
 comment`` form that ``PATHS.yml.example`` uses (no YAML library is
 installed where the port runs); anything else in the file raises.
-Training splits come with the training slice.
+Training splits are read from a pickle or npz file.
 """
 from __future__ import annotations
 
 import functools
 import json
 import os
+import pickle
 import re
 from glob import glob
 
@@ -105,7 +106,25 @@ def load_paths(path=None):
 
 
 class DataPaths:
-    """Test-image discovery."""
+    """Split loading and test-image discovery."""
+
+    @staticmethod
+    def load_splits(split_file, processed_path=None):
+        """-> (train_paths, val_paths) of preprocessed npz files, from the
+        "train" and "test" lists of a ``.pkl`` (the user's own split
+        file) or ``.npz``; relative paths are under ``processed_path``,
+        else PATHS.yml's PROCESSED_PATH."""
+        if split_file.endswith(".pkl"):
+            with open(split_file, "rb") as f:
+                data = pickle.load(f)
+        else:
+            data = dict(np.load(split_file, allow_pickle=True))
+        train, val = list(data["train"]), list(data["test"])
+        root = processed_path or load_paths().get("PROCESSED_PATH")
+        if root:
+            train = [os.path.join(root, str(p)) for p in train]
+            val = [os.path.join(root, str(p)) for p in val]
+        return train, val
 
     @staticmethod
     def get_image_paths_seq(seq_folder, tid=1, check_occlusion=False,

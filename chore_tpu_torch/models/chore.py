@@ -16,22 +16,23 @@ linear layers on (B, N, F).
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from chore_tpu_torch import resolve_device
+from chore_tpu_torch.models.convert import trained_names
 from chore_tpu_torch.models.hourglass import HGFilter
-from chore_tpu_torch.models.layers import normal_init_
+from chore_tpu_torch.models.layers import normal_init_, one_hot_ce
 from chore_tpu_torch.ops.camera import PerspectiveCamera
 from chore_tpu_torch.ops.grid_sample import bilinear_sample, bilinear_sample_frozen
 
 
 @dataclasses.dataclass(frozen=True)
 class FieldConfig:
-    """Static model configuration (release values; the training-loss
-    fields of ``chore_tpu``'s FieldConfig come with the training slice)."""
+    """Static model and loss configuration (release values)."""
 
     num_stack: int = 5
     num_hourglass: int = 2  # hourglass depth
@@ -40,8 +41,16 @@ class FieldConfig:
     num_parts: int = 14
     input_channels: int = 5  # RGBM3
     crop_size: int = 1200  # loadSize
+    net_img_size: int = 512
     z0: float = 2.2
     out_dist: float = 5.0  # df for points outside the image
+    clamp_thres: float = 0.1
+    # slope of the df loss above clamp_thres (0.0 is the reference's hard
+    # clamp, whose gradient is zero above the threshold)
+    df_leak: float = 0.05
+    remat: bool = False  # recompute each hourglass in the backward pass
+    # weights for [df_h, df_o, parts, pca, obj_center, smpl_center]
+    loss_weights: Sequence[float] = (1.0, 1.0, 0.006, 500.0, 1000.0, 1000.0)
 
     @property
     def feature_size(self):
@@ -89,7 +98,7 @@ class CHOREField(nn.Module):
                                      depth=c.num_hourglass, features=256,
                                      out_dim=c.hourglass_dim,
                                      in_channels=c.input_channels,
-                                     dtype=encoder_dtype)
+                                     dtype=encoder_dtype, remat=c.remat)
         f = c.feature_size
         self.df = make_decoder(f, c.hidden_dim, 2)
         self.pca_predictor = make_decoder(f, c.hidden_dim, 9)
@@ -169,17 +178,81 @@ class CHOREField(nn.Module):
         return self.query(feats, tmpx, points, crop_center)
 
 
+def chore_losses(preds_list, batch, cfg: FieldConfig):
+    """Training losses, averaged over stacks (``chore_tpu``'s
+    ``chore_losses``).
+
+    batch: df_h (B, N), df_o (B, N), parts (B, N) int, pca (B, 3, 3) or
+    (B, N, 3, 3), body_center (B, 3), obj_center (B, 3) (relative to the
+    body centre). Returns (total, dict of the 6 weighted parts)."""
+    w = cfg.loss_weights
+    clamp = cfg.clamp_thres
+    names = ["df_h", "df_o", "parts", "pca", "smpl_center", "obj_center"]
+    totals = {k: 0.0 for k in names}
+    df_h_gt = batch["df_h"].clamp(max=clamp)
+    df_o_gt = batch["df_o"].clamp(max=clamp)
+    mask_o = (batch["df_o"] < 0.05).float()  # (B, N)
+    mask_h = (batch["df_h"] < 0.05).float()
+    pca_gt = batch["pca"]
+    if pca_gt.dim() == 3:  # one (3, 3) per image, broadcast over points
+        pca_gt = pca_gt[:, None]
+    labels = batch["parts"].long()
+
+    def leaky_clip(x):
+        # min(x, clamp) with a small slope above it, so an overshooting df
+        # channel still gets a gradient
+        return torch.minimum(x, torch.tensor(clamp, dtype=x.dtype,
+                                             device=x.device)) \
+            + cfg.df_leak * F.relu(x - clamp)
+
+    for preds in preds_list:
+        df = preds["df"]  # (B, N, 2)
+        # clamped L1, summed over points, mean over the batch
+        loss_h = (leaky_clip(df[..., 0]) - df_h_gt).abs().sum(-1).mean()
+        loss_o = (leaky_clip(df[..., 1]) - df_o_gt).abs().sum(-1).mean()
+        loss_parts = one_hot_ce(preds["parts"], labels).sum(-1).mean()
+        # masked means over ALL elements, the masked-out ones included
+        loss_pca = ((preds["pca"] - pca_gt) ** 2
+                    * mask_o[..., None, None]).mean()
+        loss_oc = ((preds["centers"][..., 3:]
+                    - batch["obj_center"][:, None, :]) ** 2
+                   * mask_o[..., None]).mean()
+        loss_sc = ((preds["centers"][..., :3]
+                    - batch["body_center"][:, None, :]) ** 2
+                   * mask_h[..., None]).mean()
+        totals["df_h"] += loss_h * w[0]
+        totals["df_o"] += loss_o * w[1]
+        totals["parts"] += loss_parts * w[2]
+        totals["pca"] += loss_pca * w[3]
+        totals["obj_center"] += loss_oc * w[4]
+        totals["smpl_center"] += loss_sc * w[5]
+    n = len(preds_list)
+    totals = {k: v / n for k, v in totals.items()}
+    return sum(totals.values()), totals
+
+
 def build_field(cfg: FieldConfig = FieldConfig(), device=None, seed=0,
-                state_dict=None, encoder_dtype=torch.float32):
-    """A CHOREField on ``device`` (the card unless ``device="cpu"``), in
-    eval mode with frozen weights: from ``state_dict`` when given (e.g.
-    ``convert.params_from_jax`` or a reference checkpoint), else a seeded
-    N(0, 0.02) init. ``encoder_dtype``: torch.bfloat16 for the release
-    "mixed" precision."""
+                state_dict=None, encoder_dtype=torch.float32,
+                trainable=False):
+    """A CHOREField on ``device`` (the card unless ``device="cpu"``): from
+    ``state_dict`` when given (e.g. ``convert.params_from_jax`` or a
+    reference checkpoint), else a seeded N(0, 0.02) init.
+    ``encoder_dtype``: torch.bfloat16 for the release "mixed" precision.
+
+    By default in eval mode with frozen weights (the fitter's field).
+    ``trainable=True``: train mode, and gradients on every parameter that
+    ``chore_tpu``'s field has, i.e. all but the unused ``bn4`` of the
+    equal-width ConvBlocks (``convert.trained_names``)."""
     device = resolve_device(device)
     model = CHOREField(cfg, encoder_dtype=encoder_dtype)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     else:
         normal_init_(model, torch.Generator().manual_seed(seed))
-    return model.to(device).eval().requires_grad_(False)
+    model = model.to(device)
+    if not trainable:
+        return model.eval().requires_grad_(False)
+    keep = set(trained_names(model.state_dict()))
+    for name, p in model.named_parameters():
+        p.requires_grad_(name in keep)
+    return model.train()

@@ -6,6 +6,8 @@ kernels (kH, kW, I, O) become OIHW, decoder Dense kernels (I, O) become
 Conv1d (O, I, 1), GroupNorm ``scale`` becomes ``weight``. The result uses the
 reference torch names, so the same state dict also describes a reference
 ``.tar`` checkpoint, which ``load_reference_checkpoint`` reads.
+``params_to_jax`` is the way back; optimizer moments, which are shaped
+like their parameters, map the same way.
 """
 from __future__ import annotations
 
@@ -79,6 +81,65 @@ def params_from_jax(flax_params):
                 sd[block + "downsample.0.weight"] = sd[block + "bn4.weight"]
                 sd[block + "downsample.0.bias"] = sd[block + "bn4.bias"]
     return sd
+
+
+_FLAX_DECODER = {v: k for k, v in _DECODER_NAMES.items()}
+_FLAX_FC = {v: k for k, v in _FC_INDEX.items()}
+
+
+def trained_names(state_dict):
+    """The keys of ``state_dict`` that are parameters of ``chore_tpu``'s
+    field, in order: without the ``downsample.0`` alias of ``bn4`` and
+    without the ``bn4`` of ConvBlocks that keep their width (the reference
+    constructs it; nothing uses it)."""
+    out = []
+    for k in state_dict:
+        if ".downsample.0." in k:
+            continue
+        head, bn4, _ = k.rpartition(".bn4.")
+        if bn4 and head + ".downsample.2.weight" not in state_dict:
+            continue
+        out.append(k)
+    return out
+
+
+def _flax_path(key):
+    """torch state-dict key -> flax param path (inverse of _torch_key)."""
+    *mods, leaf = key.split(".")
+    if mods[0] in _FLAX_DECODER:
+        mods[0] = _FLAX_DECODER[mods[0]]
+        mods[1] = _FLAX_FC[mods[1]]
+    if len(mods) > 1 and mods[-2] == "downsample" and mods[-1] == "2":
+        mods = mods[:-1]
+    return tuple(mods), leaf
+
+
+def params_to_jax(state_dict, names=None):
+    """A state dict of the port (tensors) -> ``chore_tpu``'s flax params
+    ``{"params": {...}}`` with numpy float32 leaves: conv weights OIHW ->
+    (kH, kW, I, O), decoder Conv1d (O, I, 1) -> Dense (I, O), GroupNorm
+    ``weight`` -> ``scale``. ``names``: the keys to map (default
+    ``trained_names``). Any tensor shaped like the named parameter (its
+    gradient, an optimizer moment) maps the same way."""
+    names = trained_names(state_dict) if names is None else names
+    tree = {}
+    for key in names:
+        a = state_dict[key]
+        a = (a.detach().float().cpu().numpy() if torch.is_tensor(a)
+             else np.asarray(a, np.float32))
+        mods, leaf = _flax_path(key)
+        if leaf == "weight":
+            if a.ndim == 4:
+                leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+            elif a.ndim == 3:
+                leaf, a = "kernel", a[..., 0].T
+            else:
+                leaf = "scale"
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(a, np.float32)
+    return {"params": tree}
 
 
 def strip_ddp(state_dict):

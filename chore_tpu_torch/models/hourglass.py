@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from chore_tpu_torch.models.layers import (
     ConvBlock,
@@ -55,13 +56,17 @@ class HourGlass(nn.Module):
 class HGFilter(nn.Module):
     """Stem + ``num_stack`` hourglass stages. Release: 5 stacks, depth 2,
     256 features, 5-channel input. ``dtype`` is every conv's compute dtype
-    (bfloat16 in the release "mixed" precision); norms run in float32."""
+    (bfloat16 in the release "mixed" precision); norms run in float32.
+    ``remat``: each hourglass keeps only its input for the backward pass
+    and recomputes the rest there (``chore_tpu``'s ``nn.remat``; less
+    activation memory for about a third more encoder work)."""
 
     def __init__(self, num_stack=5, depth=2, features=256, out_dim=256,
-                 in_channels=5, dtype=torch.float32):
+                 in_channels=5, dtype=torch.float32, remat=False):
         super().__init__()
         self.num_stack = num_stack
         self.dtype = dtype
+        self.remat = remat
         self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3)
         self.bn1 = group_norm(64)
         self.conv2 = ConvBlock(64, 128, dtype)
@@ -91,7 +96,10 @@ class HGFilter(nn.Module):
         outputs = []
         m = self._modules
         for i in range(self.num_stack):
-            hg = m[f"m{i}"](previous)
+            if self.remat and torch.is_grad_enabled():
+                hg = checkpoint(m[f"m{i}"], previous, use_reentrant=False)
+            else:
+                hg = m[f"m{i}"](previous)
             ll = conv(m[f"conv_last{i}"], m[f"top_m_{i}"](hg), dt)
             ll = F.relu(norm(m[f"bn_end{i}"], ll))
             tmp_out = conv(m[f"l{i}"], ll, dt)

@@ -28,12 +28,15 @@ import numpy as np
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(os.path.dirname(_PKG), "native", "chorenat.cpp")
+# the port's own host loops (JPEG decode stages, uint8 resize)
+IMAGE_SOURCE = os.path.join(_PKG, "csrc", "image.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-fopenmp", "-Wall",
              "-Wextra", "-shared")
 
 _lib = None
 _lib_lock = threading.Lock()
+_image_lib = None
 
 
 def _cpu_signature():
@@ -57,33 +60,37 @@ def _cxx():
     return cxx
 
 
-def library_path():
-    """(compiler, path of the library for this source, flags and host)."""
+def library_path(source=None, stem="chorenat"):
+    """(compiler, path of the library for ``source`` (default ``SOURCE``),
+    its flags and the host)."""
+    source = SOURCE if source is None else source
     cxx = _cxx()
     version = subprocess.run([cxx, "--version"], capture_output=True,
                              text=True, timeout=60).stdout
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read())
     for part in (" ".join(CXX_FLAGS), version, _cpu_signature()):
         digest.update(part.encode())
     return cxx, os.path.join(BUILD_DIR,
-                             f"libchorenat_{digest.hexdigest()[:16]}.so")
+                             f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
 
-def build():
-    """Compile the library if it is missing; returns its path. Raises with
-    the compiler's output if the compile fails."""
-    cxx, lib = library_path()
+def build(source=None, stem="chorenat"):
+    """Compile ``source`` (default ``SOURCE``) into a shared library if it
+    is missing; returns its path. Raises with the compiler's output if the
+    compile fails."""
+    source = SOURCE if source is None else source
+    cxx, lib = library_path(source, stem)
     if os.path.isfile(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, source],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f"chorenat build failed ({cxx} exited "
+        raise RuntimeError(f"{stem} build failed ({cxx} exited "
                            f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
     return lib
@@ -119,6 +126,33 @@ def _load():
             c_float_p, ctypes.c_int64, c_float_p, ctypes.c_int64]
         _lib = lib
     return _lib
+
+
+def image_lib():
+    """The library of ``csrc/image.cpp`` (built on first use): the JPEG
+    reader's Huffman, IDCT, upsampling and colour stages
+    (``data/imageio.py``) and the uint8 resize (``data/image_ops.py``).
+    ctypes releases the GIL for each call."""
+    global _image_lib
+    with _lib_lock:
+        if _image_lib is None:
+            lib = ctypes.CDLL(build(IMAGE_SOURCE, "choreimage"))
+            i64, ptr, i32 = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
+            lib.jpeg_decode_scan.restype = i32
+            lib.jpeg_decode_scan.argtypes = [ptr, i64, ptr, i64, i64, i64,
+                                             i64, ptr, ptr, ptr, ptr]
+            lib.jpeg_idct_islow.restype = None
+            lib.jpeg_idct_islow.argtypes = [ptr, ptr, i64, i64, ptr]
+            lib.jpeg_upsample.restype = None
+            lib.jpeg_upsample.argtypes = [ptr, i64, i64, i32, i32, ptr, i64,
+                                          i64]
+            lib.jpeg_ycc_to_rgb.restype = None
+            lib.jpeg_ycc_to_rgb.argtypes = [ptr, ptr, ptr, i64, ptr]
+            lib.resize_u8.restype = None
+            lib.resize_u8.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr,
+                                      i64, ptr, ptr, ptr, ptr, i64, ptr]
+            _image_lib = lib
+    return _image_lib
 
 
 def available() -> bool:

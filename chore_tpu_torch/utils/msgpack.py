@@ -1,5 +1,5 @@
-"""A msgpack decoder for flax checkpoints (no msgpack package is installed
-where the port runs).
+"""A msgpack decoder and encoder for flax checkpoints (no msgpack package
+is installed where the port runs).
 
 Decodes the subset ``flax.serialization.to_bytes`` writes for a
 checkpoint: maps, arrays, str, bin, nil/bool, ints and floats of every
@@ -7,7 +7,9 @@ width, and flax's extension types 1 (an ndarray packed as msgpack: shape,
 dtype name, C-order bytes) and 3 (a numpy scalar packed as a 0-d ndarray);
 any other extension raises. Array leaves are numpy; a ``bfloat16`` leaf
 (numpy has no such dtype) becomes a ``torch.bfloat16`` tensor through a
-uint16 view.
+uint16 view. ``packb`` writes the same subset the way
+``flax.serialization.msgpack_serialize`` does (byte for byte on a tree of
+dicts with str keys and numpy leaves), so ``msgpack_restore`` reads it.
 """
 from __future__ import annotations
 
@@ -113,3 +115,100 @@ def unpackb(data):
         raise ValueError(f"{len(data) - r.pos} bytes after the msgpack "
                          "object")
     return out
+
+
+# ------------------------------------------------------------------ #
+# encoding
+_MAX_CHUNK = 2**30  # flax writes larger arrays in chunks; the port's are
+# all smaller (the largest parameter is 1.2 MB)
+
+
+def _uint(out, n, small, codes):
+    """Append a length or a count with the smallest header that holds it."""
+    if small is not None and n < small[0]:
+        out.append(small[1] | n)
+        return
+    for code, fmt in codes:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            out += bytes([code]) + struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _int(out, v):
+    if 0 <= v < 128:
+        out.append(v)
+    elif -32 <= v < 0:
+        out.append(v & 0xFF)
+    elif v >= 0:
+        _uint(out, v, None, ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"),
+                             (0xCF, ">Q")))
+    else:
+        for code, fmt, lo in ((0xD0, ">b", -2**7), (0xD1, ">h", -2**15),
+                              (0xD2, ">i", -2**31), (0xD3, ">q", -2**63)):
+            if v >= lo:
+                out += bytes([code]) + struct.pack(fmt, v)
+                return
+        raise ValueError(f"integer {v} out of msgpack's range")
+
+
+def _ndarray_bytes(a):
+    if a.dtype.hasobject or a.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes are not serialized")
+    if a.nbytes > _MAX_CHUNK:
+        raise ValueError(f"array of {a.nbytes} bytes needs flax's chunking")
+    return packb((list(a.shape), a.dtype.name, a.tobytes("C")))
+
+
+def _pack_ext(out, code, data):
+    n = len(data)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        out.append(fixed[n])
+    else:
+        _uint(out, n, None, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+    out += struct.pack(">b", code) + data
+
+
+def _pack(out, v):
+    if v is None:
+        out.append(0xC0)
+    elif v is True or v is False:
+        out.append(0xC3 if v else 0xC2)
+    elif isinstance(v, int) and not isinstance(v, np.integer):
+        _int(out, v)
+    elif isinstance(v, float) and not isinstance(v, np.floating):
+        out += b"\xcb" + struct.pack(">d", v)
+    elif isinstance(v, str):
+        b = v.encode("utf-8")
+        _uint(out, len(b), (32, 0xA0), ((0xD9, ">B"), (0xDA, ">H"),
+                                        (0xDB, ">I")))
+        out += b
+    elif isinstance(v, (bytes, bytearray, memoryview)):
+        b = bytes(v)
+        _uint(out, len(b), None, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")))
+        out += b
+    elif isinstance(v, dict):
+        _uint(out, len(v), (16, 0x80), ((0xDE, ">H"), (0xDF, ">I")))
+        for k, x in v.items():
+            _pack(out, k)
+            _pack(out, x)
+    elif isinstance(v, (list, tuple)):
+        _uint(out, len(v), (16, 0x90), ((0xDC, ">H"), (0xDD, ">I")))
+        for x in v:
+            _pack(out, x)
+    elif isinstance(v, np.ndarray):
+        _pack_ext(out, EXT_NDARRAY, _ndarray_bytes(v))
+    elif isinstance(v, np.generic):
+        _pack_ext(out, EXT_NPSCALAR, _ndarray_bytes(np.asarray(v)))
+    else:
+        raise TypeError(f"cannot msgpack a {type(v).__name__}")
+
+
+def packb(obj):
+    """Encode ``obj`` (dicts, lists, str, bytes, None, bool, int, float,
+    numpy arrays and scalars) as ``flax.serialization.msgpack_serialize``
+    does."""
+    out = bytearray()
+    _pack(out, obj)
+    return bytes(out)

@@ -1,11 +1,38 @@
-"""Per-phase wall-clock timing (``StepTimer`` of
-``chore_tpu/utils/profiling.py``)."""
+"""Tracing and per-phase wall-clock timing (``trace`` and ``StepTimer``
+of ``chore_tpu/utils/profiling.py``)."""
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict
+
+
+@contextlib.contextmanager
+def trace(logdir, enabled=True):
+    """A ``torch.profiler`` trace of the block (host, and the card's kernels
+    when there is one) written to LOGDIR/trace.json (Chrome trace format:
+    chrome://tracing or Perfetto), with the per-op table in
+    LOGDIR/ops.txt. No-op when disabled or ``logdir`` is None."""
+    if not enabled or logdir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    with open(os.path.join(logdir, "ops.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                          row_limit=60))
 
 
 class StepTimer:

@@ -131,3 +131,38 @@ def test_unsupported_files_raise(tmp_path):
     other.write_bytes(b"GIF89a....")
     with pytest.raises(ValueError, match="neither a JPEG nor a PNG"):
         read_rgb(str(other))
+
+
+def test_kinect_size_jpeg_decoded_by_threads_at_once(tmp_path):
+    """A 2048 x 1536 4:2:0 colour JPEG (a Kinect frame's size), decoded by
+    four threads at once (the training loader's workers; the native
+    Huffman decode releases the GIL), equals cv2's and PIL's, bitwise."""
+    import cv2
+    from concurrent.futures import ThreadPoolExecutor
+
+    path = str(tmp_path / "k.jpg")
+    a = _pixels(1536, 2048, 3, True, 0)
+    noise = np.random.RandomState(1).randint(0, 8, a.shape)
+    assert cv2.imwrite(path, (a + noise).astype(np.uint8))
+    with ThreadPoolExecutor(4) as pool:
+        outs = list(pool.map(lambda _: read_rgb(path), range(4)))
+    for rgb in outs:
+        np.testing.assert_array_equal(rgb, outs[0])
+    _assert_like_pil_and_cv2(path)
+    np.testing.assert_array_equal(outs[0], read_rgb(path))
+
+
+def test_entropy_data_cut_before_eoi_raises(tmp_path):
+    """Entropy-coded data cut short and closed by an EOI marker: the scan
+    runs out of bits before its last block, which raises ``ValueError``."""
+    import cv2
+
+    path = str(tmp_path / "k.jpg")
+    assert cv2.imwrite(path, _pixels(64, 64, 3, False, 3))
+    data = open(path, "rb").read()
+    cut = data[:data.index(b"\xff\xda") + 300] + b"\xff\xd9"
+    with open(path, "wb") as f:
+        f.write(cut)
+    with pytest.raises(ValueError, match="corrupt or truncated"):
+        read_rgb(path)
+

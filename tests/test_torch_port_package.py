@@ -35,7 +35,11 @@ def test_imports_no_jax_or_reference():
     mods = _port_modules()
     assert "chore_tpu_torch.recon.silhouette" in mods and len(mods) > 15
     assert {"chore_tpu_torch.api", "chore_tpu_torch.cli.recon",
-            "chore_tpu_torch.data.imageio"} <= set(mods)
+            "chore_tpu_torch.data.imageio", "chore_tpu_torch.cli.train",
+            "chore_tpu_torch.train.trainer", "chore_tpu_torch.train.optim",
+            "chore_tpu_torch.train.torch_import",
+            "chore_tpu_torch.parallel.mesh",
+            "chore_tpu_torch.data.train_data"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
@@ -64,6 +68,10 @@ def test_no_device_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+    from chore_tpu_torch.parallel import init_distributed
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_distributed()
 
 
 def test_full_f32_settings():

@@ -1,11 +1,13 @@
 """Shared helpers of the ``test_torch_port_*`` files: the same seeded
 inputs and the same weights into ``chore_tpu`` and ``chore_tpu_torch``."""
 import contextlib
+import functools
 import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 
@@ -319,3 +321,338 @@ def assert_api_outputs_match(out_j, out_t):
     assert out_t["paths"] == out_j["paths"]
     for k, v in out_j["crop_info"][0].items():
         np.testing.assert_array_equal(out_t["crop_info"][0][k], v)
+
+
+# --------------------------------------------------------------------- #
+# training: the tiny field of tests/test_train.py, batches, both trainers
+@pytest.fixture(scope="module", autouse=False)
+def few_torch_threads():
+    """Two intra-op threads for the tiny field's steps: the tier-1 run has
+    six workers on the host's cores, and PyTorch's default (one thread per
+    core) each spinning in every small op oversubscribes them many times
+    over. Restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+TRAIN_FIELD = dict(num_stack=1, num_hourglass=2, net_img_size=32)
+
+
+def jax_train_params(seed=0, **field):
+    """(flax CHOREField, params) at TRAIN_FIELD (or ``field``) with
+    ``jax_field``'s seeded numpy weights."""
+    from chore_tpu.models import CHOREField, FieldConfig
+
+    cfg = FieldConfig(**{**TRAIN_FIELD, **field})
+    model = CHOREField(cfg=cfg)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(seed),
+                            jnp.zeros((1, 32, 32, 5)), jnp.zeros((1, 8, 3)),
+                            jnp.zeros((1, 2)))
+    rng = np.random.RandomState(seed + 1)
+
+    def leaf(path, sds):
+        name = getattr(path[-1], "key", str(path[-1]))
+        z = rng.randn(*sds.shape).astype(np.float32)
+        return jnp.asarray({"kernel": 0.02 * z,
+                            "scale": 1.0 + 0.01 * z}.get(name, 0.01 * z))
+
+    return cfg, jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def train_batch(rng, B=2, N=200, img=32):
+    """A seeded training batch as ``BehaveTrainData`` gives it: uint8 images,
+    points in front of the camera, UDFs on both sides of clamp_thres and
+    of the 0.05 mask, compact (B, 3, 3) PCA targets."""
+    return {
+        "images": rng.randint(0, 256, (B, img, img, 5)).astype(np.uint8),
+        "points": (rng.rand(B, N, 3) * [1, 1, 0.5]
+                   + [-0.5, -0.5, 1.95]).astype(np.float32),
+        "crop_center": np.tile([[1018.0, 779.0]], (B, 1)).astype(np.float32),
+        "df_h": (np.abs(rng.randn(B, N)) * 0.1).astype(np.float32),
+        "df_o": (np.abs(rng.randn(B, N)) * 0.1).astype(np.float32),
+        "parts": rng.randint(0, 14, (B, N)).astype(np.int32),
+        "pca": rng.randn(B, 3, 3).astype(np.float32),
+        "body_center": np.tile([[0.0, 0, 2.2]], (B, 1)).astype(np.float32),
+        "obj_center": (0.3 * rng.randn(B, 3)).astype(np.float32),
+    }
+
+
+def jax_trainer(model, params, exp_dir, optimizer="adam", milestones=(1,)):
+    """``chore_tpu``'s Trainer on a one-device mesh."""
+    from chore_tpu.parallel import make_mesh
+    from chore_tpu.train import Trainer
+
+    return Trainer(model, params, str(exp_dir),
+                   mesh=make_mesh(devices=jax.devices()[:1]),
+                   milestones=milestones, optimizer=optimizer,
+                   ck_period_min=1e9)
+
+
+def port_trainer(cfg, params, exp_dir, optimizer="adam", milestones=(1,),
+                 encoder_dtype=torch.float32):
+    """The port's Trainer on the CPU with the same weights."""
+    from chore_tpu_torch.models.chore import FieldConfig, build_field
+    from chore_tpu_torch.models.convert import params_from_jax
+    from chore_tpu_torch.train import Trainer
+
+    tcfg = FieldConfig(**{f: getattr(cfg, f) for f in (
+        "num_stack", "num_hourglass", "net_img_size")})
+    model = build_field(tcfg, device="cpu", trainable=True,
+                        encoder_dtype=encoder_dtype,
+                        state_dict=params_from_jax(
+                            jax.tree_util.tree_map(np.asarray, params)))
+    return Trainer(model, str(exp_dir), milestones=milestones,
+                   optimizer=optimizer, ck_period_min=1e9)
+
+
+def flat(tree):
+    """{path string: numpy leaf} of a nested dict / pytree."""
+    return {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def assert_trees_close(got, want, atol, err=""):
+    """Equal keys, every leaf within ``atol``."""
+    got, want = flat(got), flat(want)
+    assert set(got) == set(want), set(got) ^ set(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, rtol=0, atol=atol,
+                                   err_msg=f"{err}{k}")
+
+
+def jax_grad_fn(model):
+    """``chore_tpu``'s training loss and its gradient, jitted once: the
+    Trainer's ``loss_fn`` (``model.apply`` + ``chore_losses``) under
+    ``jax.value_and_grad``. One compile serves every step and optimizer
+    of a test file (a Trainer compiles its own step, per optimizer)."""
+    from chore_tpu.models import chore_losses
+
+    def loss_fn(params, batch):
+        preds = model.apply(params, batch["images"], batch["points"],
+                            batch["crop_center"])
+        return chore_losses(preds, batch, model.cfg)
+
+    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+
+
+@functools.lru_cache(maxsize=None)
+def optax_update_fn(name):
+    """(tx, update): ``chore_tpu``'s Trainer transformation for optimizer
+    ``name`` (``optax.inject_hyperparams(name)(learning_rate=1e-3)``; the
+    LR lives in the state) and it with ``optax.apply_updates``, jitted
+    once per process (eager optax compiles each op for each leaf shape)."""
+    import optax
+
+    tx = optax.inject_hyperparams(getattr(optax, name))(learning_rate=1e-3)
+
+    def update(grads, opt_state, params):
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state
+
+    return tx, jax.jit(update)
+
+
+def jax_step(jt, grad_fn, update_fn, batch):
+    """``chore_tpu``'s ``Trainer.train_step`` on ``jt``: the gradient from
+    ``grad_fn``, then ``update_fn`` (``optax_update_fn``'s, the same
+    transformation as ``jt.tx``). Returns (loss, gradients)."""
+    (loss, _), grads = grad_fn(jt.params, {k: jnp.asarray(v)
+                                           for k, v in batch.items()})
+    jt.params, jt.opt_state = update_fn(grads, jt.opt_state, jt.params)
+    jt.global_step += 1
+    return loss, grads
+
+
+def resumed_steps_match(tmp_path, optimizer, grad_fn, loss_rtol, atol=None,
+                        update_rtol=None, warm=2, steps=(1, 2), mixed=False,
+                        noise_rel=None):
+    """Start both trainers from one JAX (params, opt_state):
+    ``chore_tpu``'s trainer takes ``warm`` steps (``jax_step``) on one
+    batch and saves; the port resumes from that checkpoint. Then both take
+    steps[0] steps at epoch 0 and steps[1] at epoch 1 (milestone 1: the LR
+    drops 0.3x) on other batches: per-step losses within ``loss_rtol``;
+    the parameters within ``atol``, or the update of all parameters (one
+    vector, from the resumed point) within ``update_rtol`` relative in
+    norm.
+
+    ``noise_rel``: an element whose JAX gradient, at one of these steps,
+    is nonzero but below ``noise_rel`` of its tensor's largest, is
+    rounding noise; those elements (at most 0.2% of all) are held within
+    the steps' summed LR, the most an Adam update can move them, and every
+    other element within ``atol``."""
+    from chore_tpu.models import CHOREField
+    from chore_tpu_torch.models.convert import params_to_jax
+
+    cfg, params = jax_train_params()
+    jt = jax_trainer(CHOREField(cfg=cfg, encoder_dtype=(
+        jnp.bfloat16 if mixed else jnp.float32)), params, tmp_path / "exp",
+        optimizer)
+    update_fn = optax_update_fn(optimizer)[1]
+    rng = np.random.RandomState(3)
+    jt.set_epoch_lr(0)
+    for _ in range(warm):
+        jax_step(jt, grad_fn, update_fn, train_batch(rng))
+    jt.save()
+    tt = port_trainer(cfg, params, tmp_path / "exp", optimizer,
+                      encoder_dtype=torch.bfloat16 if mixed else torch.float32)
+    assert tt.load() and tt.global_step == warm
+    start = flat(jax.device_get(jt.params))
+    noise = {k: np.zeros(v.shape, bool) for k, v in start.items()}
+    lr_sum = 0.0
+    for epoch, n in enumerate(steps):
+        lr = jt.set_epoch_lr(epoch)
+        assert lr == tt.set_epoch_lr(epoch)
+        for _ in range(n):
+            b = train_batch(rng)
+            lj, gj = jax_step(jt, grad_fn, update_fn, b)
+            lt, _ = tt.train_step(b)
+            np.testing.assert_allclose(float(lt), float(lj), rtol=loss_rtol)
+            lr_sum += lr
+            if noise_rel is not None:
+                for k, g in flat(jax.device_get(gj)).items():
+                    g = np.abs(np.asarray(g))
+                    noise[k] |= (g > 0) & (g < noise_rel * g.max())
+    want = jax.tree_util.tree_map(np.asarray, jax.device_get(jt.params))
+    got = params_to_jax(tt.model.state_dict())
+    if noise_rel is not None:
+        got, want = flat(got), flat(want)
+        assert set(got) == set(want), set(got) ^ set(want)
+        n_noise = sum(int(m.sum()) for m in noise.values())
+        assert n_noise <= 2e-3 * sum(m.size for m in noise.values()), n_noise
+        for k, v in want.items():
+            err = np.abs(got[k] - v)
+            np.testing.assert_array_less(err[~noise[k]], atol,
+                                         err_msg=f"{optimizer} {k}")
+            np.testing.assert_array_less(err[noise[k]], lr_sum,
+                                         err_msg=f"{optimizer} {k} (noise)")
+    elif atol is not None:
+        assert_trees_close(got, want, atol, f"{optimizer} ")
+    if update_rtol is not None:
+        got, want = flat(got), flat(want)
+        keys = sorted(want)
+        dj = np.concatenate([(want[k] - start[k]).ravel() for k in keys])
+        dt = np.concatenate([(got[k] - start[k]).ravel() for k in keys])
+        rel = np.linalg.norm(dt - dj) / np.linalg.norm(dj)
+        assert rel < update_rtol, rel
+
+
+def write_train_frames(root, n=4, size=(320, 240), points=400, seed=0):
+    """``n`` preprocessed training frames as ``cli.preprocess`` writes them
+    (``<frame>_k1_scale.npz`` with per-sigma boundary samples, UDFs, part
+    labels, centres, PCA axes and the image path), each with a mirrored
+    ``_flip.npz``, over a written colour JPEG and person/object mask
+    JPEGs of ``size`` (w, h). Returns the npz paths."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    w, h = size
+    yy, xx = np.mgrid[:h, :w]
+    paths = []
+    for i in range(n):
+        frame = os.path.join(str(root), f"t{i:04d}.000")
+        os.makedirs(frame)
+        rgb = os.path.join(frame, "k1.color.jpg")
+        cv2.imwrite(rgb, rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+        cx, cy = w // 2 + rng.randint(-20, 20), h // 2 + rng.randint(-20, 20)
+        person = 255 * ((np.abs(xx - cx) < 30) & (np.abs(yy - cy) < 50))
+        obj = 255 * ((xx - cx - 35) ** 2 + (yy - cy) ** 2 < 20 ** 2)
+        cv2.imwrite(os.path.join(frame, "k1.person_mask.jpg"),
+                    person.astype(np.uint8))
+        cv2.imwrite(os.path.join(frame, "k1.obj_rend_mask.jpg"),
+                    obj.astype(np.uint8))
+        for suffix, mirror in (("", 1.0), ("_flip", -1.0)):
+            sig = {}
+            for name in ("points", "dist_h", "dist_o", "parts"):
+                sig[name] = {}
+            for sigma in (0.08, 0.02, 0.003):
+                k = f"sigma{sigma}"
+                p = rng.randn(points, 3).astype(np.float32) * sigma
+                sig["points"][k] = (p + [0.0, 0.0, 2.2]) * [mirror, 1, 1]
+                sig["dist_h"][k] = np.abs(rng.randn(points)).astype(
+                    np.float32) * sigma
+                sig["dist_o"][k] = np.abs(rng.randn(points)).astype(
+                    np.float32) * sigma
+                sig["parts"][k] = rng.randint(0, 14, points).astype(
+                    np.int64)
+            path = os.path.join(frame, f"t{i:04d}.000_k1_scale{suffix}.npz")
+            np.savez(path, points=sig["points"], dist_h=sig["dist_h"],
+                     dist_o=sig["dist_o"], parts=sig["parts"],
+                     smpl_center=np.array([0.01 * i, 0.1, 2.2]),
+                     obj_center=np.array([0.3, 0.0, 2.1 + 0.01 * i]),
+                     pca_axis=rng.randn(3, 3), image_file=rgb)
+            if not suffix:
+                paths.append(path)
+    return paths
+
+
+def optax_updates_match(name, tmp_path):
+    """The port's optimizer against ``optax.inject_hyperparams(name)`` on
+    the same gradients: the state of two optax updates loaded into the
+    port (``load_optax_state``), then three updates, the LR dropping
+    0.3x before the last two. Gradients span six decades (elements near
+    eps included); parameters within 1e-5 of each tensor's largest update
+    plus 4 ulp of its largest value (the f32 rounding of p + update), and
+    the port's exported state equal to optax's: counts and
+    hyperparameters exactly, each moment (all parameters' as one vector)
+    within 1e-6 relative in norm (torch's moment update is a lerp;
+    elementwise, a moment that cancels to near zero keeps the rounding of
+    its larger terms)."""
+    import optax
+    from flax import serialization
+
+    from chore_tpu_torch.models.convert import params_from_jax
+    from chore_tpu_torch.train import optim
+
+    cfg, params = jax_train_params()
+    params = jax.tree_util.tree_map(np.asarray, params)
+    rng = np.random.RandomState(7)
+
+    def grads():
+        return jax.tree_util.tree_map(
+            lambda p: (rng.randn(*p.shape) * 10.0 ** rng.uniform(
+                -6, 0, p.shape)).astype(np.float32), params)
+
+    tx, update = optax_update_fn(name)
+    state = tx.init(params)
+    for _ in range(2):
+        params, state = update(grads(), state, params)
+    tt = port_trainer(cfg, params, tmp_path, optimizer=name)
+    optim.load_optax_state(tt.opt, name, tt.named_params,
+                           serialization.to_state_dict(state))
+    p0 = params
+    for lr in (1e-3, 3e-4, 3e-4):
+        state.hyperparams["learning_rate"] = jnp.asarray(lr)
+        optim.set_lr(tt.opt, lr)
+        g = grads()
+        params, state = update(g, state, params)
+        tg = params_from_jax(g)
+        for n, p in tt.named_params:
+            p.grad = tg[n].clone()
+        tt.opt.step()
+    from chore_tpu_torch.models.convert import params_to_jax
+
+    got, want, start = (flat(params_to_jax(tt.model.state_dict())),
+                        flat(params), flat(p0))
+    for k, v in want.items():
+        moved = np.abs(v - start[k]).max()
+        np.testing.assert_allclose(
+            got[k], v, rtol=0, atol=1e-5 * moved + 4 * np.spacing(
+                np.abs(v).max()), err_msg=k)
+    mine = flat(optim.optax_state(tt.opt, name, tt.named_params))
+    ref = flat(serialization.to_state_dict(state))
+    assert set(mine) == set(ref)
+    moments = {}
+    for k, v in ref.items():
+        assert mine[k].dtype == v.dtype and mine[k].shape == v.shape, k
+        if v.ndim == 0:
+            np.testing.assert_allclose(mine[k], v, rtol=1e-7, err_msg=k)
+        else:
+            field = k.split("/params/")[0]
+            moments.setdefault(field, []).append((mine[k] - v, v))
+    assert moments
+    for field, pairs in moments.items():
+        diff = np.sqrt(sum(np.sum(d.astype(np.float64) ** 2)
+                           for d, _ in pairs))
+        norm = np.sqrt(sum(np.sum(v.astype(np.float64) ** 2)
+                           for _, v in pairs))
+        assert diff <= 1e-6 * norm, (field, diff / norm)
