@@ -5,7 +5,9 @@
     python3 chip_smoke.py --phases kernels
     python3 chip_smoke.py --phases profile --out DIR  # profiler breakdown
     python3 chip_smoke.py --phases loader  # cli.recon's prep loaders
-    python3 chip_smoke.py --phases ddp     # training on every card (2+)
+    python3 chip_smoke.py --phases recon_dp  # data-parallel reconstruction
+    python3 chip_smoke.py --phases ddp     # every card (2+): training and
+                                           # reconstruction
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. card name and power limit, torch/CUDA versions; build every kernel
@@ -51,7 +53,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ms under
      torch.profiler after every other phase) and at 256^2 on the card
      against the CPU (equal face indices, bary difference).
-  7. eval: a synthetic BEHAVE sequence written with the port's writers
+  7. recon_dp: data-parallel reconstruction at the same config on the
+     example frame and a changed copy: (a) one process at B=1 and B=2;
+     (b) two processes, one frame each, through
+     ``Reconstructor(mesh=make_mesh())`` on this card (a gloo group each
+     worker joins itself: NCCL takes one rank per device), against (a)'s
+     B=2: every rank returns the same whole result, the same iterations,
+     the batch loss before the first step, the parameters within the
+     gross bound of 1e-3 or 4x what a ~1e-3 px crop-centre change does
+     to (a) (measured here), each rank launching K1 once per joint step
+     and K2/K3 once per sil step; images/s, the all-sum's ms per call,
+     device peak per rank; then the stepwise check: each phase of every
+     rank started from (a)'s state, its first and last step held to
+     (a)'s (the loss terms summed over the ranks, the gradient, the
+     jittered rotation, the object's init, the generator's state), which
+     independent one-frame fits must fail; (c) ``cli.recon.main
+     --data-parallel -bs 2`` in one
+     process over four frames against the plain ``-bs 2`` run (schedule
+     cut): the same files.
+  8. eval: a synthetic BEHAVE sequence written with the port's writers
      (8 frames, two kinects with calibration, 16-bit depth, the posed
      synthetic SMPL-H at 13,776 faces and a 2,048-face object as GT, the
      reconstruction the GT under a known similarity plus noise);
@@ -60,13 +80,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      launches = frames evaluated, card against a float64 oracle and
      against the CPU, the moved reconstruction's errors against the
      unmoved one's; then ``python -m chore_tpu_torch.cli.evaluate``.
-  8. preprocess: ``process_scale_frame`` on one frame and kinect at the
+  9. preprocess: ``process_scale_frame`` on one frame and kinect at the
      release settings with the native and the device backend: s/frame, K1
      launches, peak memory, the two agreeing (points bitwise, UDF, labels
      but near-ties); the device backend on the card against the CPU at a
      small size; then ``cli.preprocess.main`` at its defaults over the
      sequence on the card (the device backend: K1 six times a frame).
-  9. train: ``Trainer`` at ``ChoreConfig()``'s defaults (5 stacks, 256
+ 10. train: ``Trainer`` at ``ChoreConfig()``'s defaults (5 stacks, 256
      features, 512^2, "mixed", batch 15 x 20,000 points) over the eval
      phase's sequence preprocessed for both kinects (16 files, listed
      as often as 22 batches take): 2 + 20 steps through the training
@@ -78,9 +98,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``python -m chore_tpu_torch.cli.train`` in a fresh process (one
      epoch; a checkpoint and the val_min pointer). K1-K3 launch 0 times.
      After every other phase, one release step under torch.profiler.
- 10. the kernel table as one JSON line (launches counted through the
+ 11. the kernel table as one JSON line (launches counted through the
      demo, else the entry point; ``launches_by_path`` holds every path's
-     count, the training path's 0 included), then the result line.
+     count, each recon_dp rank's and the training path's 0 included),
+     then the result line.
 
 Opt-in phases: ``profile`` (where the fit's time goes, torch.profiler),
 ``loader`` (``recon_fit`` over an 8-frame sequence with the serial prep
@@ -89,7 +110,9 @@ loading excluded) and ``ddp`` (needs 2+ cards: the release training step
 on one card, then one process per card over NCCL each stepping its own
 release batch under DistributedDataParallel; images/s and the per-card
 rate against one card's; a DDP step of the tiny field against the
-gradient of the joined batch on one process).
+gradient of the joined batch on one process; then reconstruction, one
+process per card over NCCL at global batch 4 and 8, against one card at
+B=1, 4 and 8, held as the recon_dp phase holds its ranks).
 
 Each phase's wall seconds are logged after it. Needs a CUDA device;
 exits non-zero without one.
@@ -122,8 +145,8 @@ NN_DIST_TOL = 5e-5
 COV_REL_TOL = 1e-5
 COV_GRAD_REL_TOL = 1e-5
 
-PHASES = ("kernels", "field", "fit", "recon", "demo", "eval", "preprocess",
-          "train")
+PHASES = ("kernels", "field", "fit", "recon", "demo", "recon_dp", "eval",
+          "preprocess", "train")
 OPT_IN = ("profile", "loader", "ddp")
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -2233,6 +2256,803 @@ def run_ddp(torch, card, device=None, world=None):
 
 
 # --------------------------------------------------------------------- #
+# phase recon_dp: data-parallel reconstruction (Reconstructor(mesh=),
+# cli.recon --data-parallel) at the release "mixed" config, the ranks
+# against one process on the joined batch.
+# The free-running fits cannot be held tightly. On the card a frame's values
+# depend in their last bits on the batch it sits in (cuBLAS and cuDNN pick
+# other kernels for other shapes), and the fit at seeded random weights
+# amplifies rounding: Adam's first steps move every parameter by about the
+# LR whatever the sign of a near-zero gradient, so a ~1e-3 px change of the
+# crop centre moves the final parameters about as far as the ranks are
+# from one process, and as far as independent one-frame fits are. So the
+# free-running ranks are held to the iterations, the batch loss before the
+# first step (DP_LOSS0_RTOL) and only a gross bound on the parameters (the
+# larger of DP_TOL and DP_NOISE_FACTOR times that crop-centre change,
+# measured in the same call: a rank that returned another frame's result
+# fails it).
+# The check that fails for a fault of the batch semantics (a share of a
+# term, the contact pair count, a draw or jitter sliced wrongly) is
+# stepwise (``PhaseTap``): every phase of a rank's fit starts from one
+# process's state on the joined batch, and its first step and its last
+# iteration at one process's result are held to that process's: each loss
+# term summed over the ranks within DP_STEP_RTOL, the rank's gradient
+# within DP_GRAD_RTOL of its rows of one process's (in norm), the jittered
+# rotation within DP_ROT_ATOL, the phase's own input (the object's init
+# comes from the rank's generated points) within DP_INPUT_ATOL, the
+# point-generation draws of each of its frames and the generator's state
+# entering the first phase equal. A fault moves a term or the gradient by
+# O(1) relative (a share off by the rank count) or changes a draw; the
+# tolerances sit above what the card's batch-shape rounding does through
+# the bf16 encoder (3e-3 in a term that is small by cancellation, 4.6e-3
+# in a gradient, 5.3e-3 in the object's init). Independent one-frame fits
+# held the same way must fail it.
+DP_TOL = 1e-3
+DP_NOISE_FACTOR = 4.0
+DP_LOSS0_RTOL = 1e-4
+DP_STEP_RTOL = 1e-2
+DP_GRAD_RTOL = 2e-2
+DP_ROT_ATOL = 1e-5
+DP_INPUT_ATOL = 2e-2
+DP_WARM_FIT = dict(iter_kpts_max=2, iter_obj=1, iter_sil=1, iter_joint_max=1)
+# cli.recon --data-parallel against the plain run: the release field with
+# the schedule cut (the files' equality is checked, not the time)
+DP_CLI_FIT = dict(iter_kpts_max=12, iter_obj=4, iter_sil=4, iter_joint_max=8)
+
+
+def write_dp_seq(root, n):
+    """A BEHAVE-layout sequence of ``n`` frames under ROOT/dp_seq: the
+    committed example frame, then copies whose keypoints, mocap pose and
+    photo differ from it. Returns the color images in order."""
+    import shutil
+
+    from chore_tpu_torch.data.imageio import imwrite, read_bgr
+
+    seq = os.path.join(root, "dp_seq")
+    rng = np.random.RandomState(3)
+    files = []
+    for k in range(n):
+        frame = os.path.join(seq, f"frame{k:04d}")
+        files.append(os.path.join(frame, "k1.color.jpg"))
+        if os.path.isdir(frame):
+            continue
+        shutil.copytree(EXAMPLE_FRAME, frame)
+        if k == 0:
+            continue
+        path = os.path.join(frame, "k1.color.json")
+        with open(path) as f:
+            kp = json.load(f)
+        j = np.asarray(kp["body_joints"]).reshape(-1, 3)
+        j[:, :2] += (4.0 * k, -3.0 * k)
+        kp["body_joints"] = j.ravel().tolist()
+        with open(path, "w") as f:
+            json.dump(kp, f)
+        path = os.path.join(frame, "k1.mocap.json")
+        with open(path) as f:
+            mc = json.load(f)
+        mc["pose"] = (np.asarray(mc["pose"])
+                      + 0.03 * rng.randn(len(mc["pose"]))).tolist()
+        with open(path, "w") as f:
+            json.dump(mc, f)
+        path = files[-1]
+        imwrite(path, (read_bgr(path) * (1.0 - 0.05 * k)).astype(np.uint8))
+    return files
+
+
+def count_plain_launches():
+    """On the CPU (a rehearsal of this phase), count each call of a
+    kernel's plain version in the kernel's launch counter, as the card's
+    wrappers count their launches."""
+    from chore_tpu_torch.ops import chamfer, nn as nn_mod
+    from chore_tpu_torch.ops import silhouette as sil_mod
+
+    def counted(fn, d, key):
+        def call(*a, **k):
+            d[key] += 1
+            return fn(*a, **k)
+        return call
+
+    chamfer.nn_grouped_multi = counted(chamfer.nn_grouped_multi,
+                                       nn_mod.launches, "nn_grouped")
+    sil_mod.coverage_sums_plain = counted(sil_mod.coverage_sums_plain,
+                                          sil_mod.launches, "coverage_fwd")
+    sil_mod.coverage_sums_bwd_plain = counted(
+        sil_mod.coverage_sums_bwd_plain, sil_mod.launches, "coverage_bwd")
+
+
+def dp_reconstructor(spec, out_dir, device=None, mesh=None):
+    """``Reconstructor`` at ``spec``'s ChoreConfig, FitConfig and
+    SamplerConfig keywords (empty: the release defaults), seeded random
+    weights (no checkpoint under OUT_DIR/experiments)."""
+    from chore_tpu_torch.api import Reconstructor
+    from chore_tpu_torch.config import ChoreConfig
+    from chore_tpu_torch.recon.fitter import FitConfig
+    from chore_tpu_torch.recon.generator import SamplerConfig
+
+    return Reconstructor(
+        ChoreConfig(**spec.get("config", {})), obj_name="basketball",
+        exp_root=os.path.join(out_dir, "experiments"),
+        fit_cfg=FitConfig(**spec["fit"]) if spec.get("fit") else None,
+        sampler_cfg=(SamplerConfig(**spec["sampler"])
+                     if spec.get("sampler") else None),
+        crop_info_dir=os.path.join(out_dir, "crop"), device=device,
+        mesh=mesh)
+
+
+def dp_reconstruct(torch, rec, files, counters, label):
+    """One ``rec.reconstruct(files)`` (generator seed 1) after a cut-budget
+    warm-up of the same Reconstructor; every count zeroed just before the
+    timed call and read just after; the device peak of that call. Checks
+    K1 = joint steps and K2 = K3 = the sil phase's steps. Returns (output,
+    stats)."""
+    import dataclasses
+
+    on_card = rec.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    fitter = rec.fitter
+    full = fitter.cfg
+    fitter.cfg = dataclasses.replace(full, **DP_WARM_FIT)
+    rec.reconstruct(files, generator=torch.Generator(
+        device=rec.device).manual_seed(0))
+    fitter.cfg = full
+    fit_batch, fits = fitter.fit_batch, []
+
+    def recording(*a, **k):  # keeps fit_batch's result (its iterations)
+        fits.append(fit_batch(*a, **k))
+        return fits[-1]
+
+    fitter.fit_batch = recording
+    fitter.record_traces = True
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(rec.device)
+    for d, k in counters.values():
+        d[k] = 0
+    fitter.timer.reset()
+    t0 = time.perf_counter()
+    out = rec.reconstruct(files, generator=torch.Generator(
+        device=rec.device).manual_seed(1))
+    sync()
+    sec = time.perf_counter() - t0
+    counts = {name: d[k] for name, (d, k) in counters.items()}
+    fitter.fit_batch, fitter.record_traces = fit_batch, False
+    joint_steps = fitter.timer.summary().get("joint_nn", {}).get("count", 0)
+    sil_steps = full.iter_sil * full.steps_per_iter
+    if counts["nn_grouped"] != joint_steps or not joint_steps:
+        raise SystemExit(f"{label}: {counts['nn_grouped']} K1 launches for "
+                         f"{joint_steps} joint steps")
+    if not counts["coverage_fwd"] == counts["coverage_bwd"] == sil_steps:
+        raise SystemExit(f"{label}: K2/K3 launched {counts} times, the sil "
+                         f"phase has {sil_steps} steps")
+    arrays = [out["smpl_verts"], out["obj_verts"], out["obj_R"],
+              *out["smpl_params"].values(), *out["obj_params"].values()]
+    if not all(np.isfinite(a).all() for a in arrays):
+        raise SystemExit(f"{label}: non-finite output")
+    if out["smpl_verts"].shape != (len(files), 6890, 3):
+        raise SystemExit(f"{label}: smpl_verts {out['smpl_verts'].shape}")
+    trace = np.concatenate([fits[0][c][p]["loss"].ravel()
+                            for c in ("smpl_trace", "obj_trace")
+                            for p in fits[0][c]])
+    stats = {"sec": sec, "images_per_s": len(files) / sec,
+             "launches": counts, "joint_steps": joint_steps,
+             "iters": fits[0]["iters"], "trace": trace.tolist(),
+             "device_peak_gib": (torch.cuda.max_memory_allocated(rec.device)
+                                 / 2**30 if on_card else 0.0)}
+    return out, stats
+
+
+def dp_result(out):
+    """The compared arrays of a reconstruct() result, flat."""
+    flat = {k: out[k] for k in ("smpl_verts", "obj_verts", "obj_R")}
+    for group in ("smpl_params", "obj_params"):
+        flat.update({f"{group}/{k}": v for k, v in out[group].items()})
+    return flat
+
+
+def dp_diff(got, want):
+    """Largest absolute difference of two flat results."""
+    return max(float(np.abs(np.asarray(got[k]) - np.asarray(v)).max())
+               for k, v in want.items())
+
+
+def dp_control(torch, rec, files, counters, want):
+    """The one-process fit of ``files`` with each crop centre times
+    1 + 2^-20 (~1e-3 px): how far a rounding-sized change moves the fit
+    from ``want``. Returns (parameter difference, first trace step that
+    differs by more than 1e-3 relative, or None)."""
+    prepare = rec.prep.prepare
+
+    def moved(path, **kw):
+        item = prepare(path, **kw)
+        item["crop_center"] = item["crop_center"] * np.float32(1 + 2**-20)
+        return item
+
+    rec.prep.prepare = moved
+    try:
+        out, stats = dp_reconstruct(torch, rec, files, counters,
+                                    "recon_dp control")
+    finally:
+        rec.prep.prepare = prepare
+    return dp_diff(dp_result(out), dp_result(want[0])), trace_split(
+        stats["trace"], want[1]["trace"])
+
+
+def trace_split(got, want):
+    """First step whose batch loss differs by more than 1e-3 relative."""
+    got, want = np.asarray(got), np.asarray(want)
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-6)
+    return int(np.argmax(rel > 1e-3)) if (rel > 1e-3).any() else None
+
+
+def dp_compare(label, got, gs, want, ws, noise):
+    """A rank's whole free-running result (``got``, its stats ``gs``)
+    against one process's (``want``, ``ws``): the same iterations, the
+    batch loss before the first step within DP_LOSS0_RTOL, the parameters
+    within the gross bound max(DP_TOL, DP_NOISE_FACTOR * noise). Returns
+    the parameter difference, the loss's, and the first step whose loss
+    differs by 1e-3."""
+    if gs["iters"] != ws["iters"]:
+        raise SystemExit(f"{label}: iterations {gs['iters']}, one process "
+                         f"{ws['iters']}")
+    loss0 = abs(gs["trace"][0] - ws["trace"][0]) / abs(ws["trace"][0])
+    if not loss0 <= DP_LOSS0_RTOL:
+        raise SystemExit(f"{label}: batch loss before the first step "
+                         f"{gs['trace'][0]} against {ws['trace'][0]}")
+    diff, tol = dp_diff(got, want), max(DP_TOL, DP_NOISE_FACTOR * noise)
+    if not diff <= tol:
+        raise SystemExit(f"{label}: {diff:.3g} from one process (tol "
+                         f"{tol:.3g})")
+    return diff, loss0, trace_split(gs["trace"], ws["trace"])
+
+
+class PhaseTap:
+    """Taps every phase of ``ReconFitter.fit_batch`` (``recon.fitter``'s
+    ``run_phase``) and evaluates two of its steps apart: its first step
+    (at its input, iteration 0) and its last iteration at its result (where
+    the terms anchored to the input, such as the sil phase's ``trans``, and
+    those switched on later, such as ``j2d``, are live), each with a copy
+    of the generator in the state the first step sees: the loss and its
+    terms, the gradient of the trainable parameters and the jittered
+    rotation. It also keeps the point-generation draws the sampler used
+    (``draw_digests``). With ``pinned`` (one process's phases on the joined
+    batch) and ``rows`` (this process's frames in it) each phase starts
+    from the recorded input and generator state and hands on the recorded
+    result without running its steps, so every phase is reached in one
+    process's state, whatever rounding did before it."""
+
+    def __init__(self, torch, pinned=None, rows=None):
+        self.torch, self.pinned, self.rows = torch, pinned, rows
+        self.phases, self.rot, self.draws = [], None, []
+
+    def __enter__(self):
+        import chore_tpu_torch.recon.fitter as fit_mod
+        import chore_tpu_torch.recon.generator as gen_mod
+
+        self.mods = fit_mod, gen_mod
+        self.saved = (fit_mod.run_phase, fit_mod.project_so3_jittered,
+                      gen_mod.make_draws, gen_mod.Generator.generate_from_feats)
+
+        def jittered(*a, **k):
+            self.rot = self.saved[1](*a, **k)
+            return self.rot
+
+        def made(*a, **k):  # one process: the sampler draws them itself
+            self.draws.append(self.saved[2](*a, **k))
+            return self.draws[-1]
+
+        def generate(gen, feats, tmpx, crop_center, generator=None,
+                     draws=None):  # a rank: handed its slice
+            if draws:
+                self.draws.extend(draws[n] for n in ("human", "object"))
+            return self.saved[3](gen, feats, tmpx, crop_center, generator,
+                                 draws)
+
+        fit_mod.run_phase, fit_mod.project_so3_jittered = (self.run_phase,
+                                                           jittered)
+        gen_mod.make_draws, gen_mod.Generator.generate_from_feats = (made,
+                                                                     generate)
+        return self
+
+    def __exit__(self, *exc):
+        fit_mod, gen_mod = self.mods
+        (fit_mod.run_phase, fit_mod.project_so3_jittered, gen_mod.make_draws,
+         gen_mod.Generator.generate_from_feats) = self.saved
+
+    def run_phase(self, loss_fn, params, spec, generator=None,
+                  prev_loss=300.0, record=False, mesh=None):
+        torch = self.torch
+        dev = next(iter(params.values())).device
+
+        def host(d):
+            return {k: v.detach().cpu().numpy() for k, v in d.items()}
+
+        def pin(d):
+            return {k: torch.as_tensor(v[self.rows], device=dev)
+                    for k, v in d.items()}
+
+        entry = {"input": host(params), "gen": generator.get_state().numpy()}
+        if not self.phases:
+            entry["draws"] = draw_digests(self.draws)
+        if self.pinned is not None:
+            ref = self.pinned[len(self.phases)]
+            params = pin(ref["input"])
+            generator.set_state(torch.as_tensor(ref["gen"]))
+        state = generator.get_state()
+        entry["first"] = self.step(loss_fn, params, spec, state, 0)
+        if self.pinned is None:
+            out = self.saved[0](loss_fn, params, spec, generator,
+                                prev_loss=prev_loss, record=record, mesh=mesh)
+            entry.update(output=host(out[0]), loss=out[1], iters=out[2])
+        else:
+            out = (pin(ref["output"]), ref["loss"], ref["iters"])
+        entry["last"] = self.step(loss_fn, out[0], spec, state, out[2] - 1)
+        self.phases.append(entry)
+        return out
+
+    def step(self, loss_fn, params, spec, state, it):
+        torch = self.torch
+        g = torch.Generator(device=next(iter(params.values())).device)
+        g.set_state(state)
+        mask = spec.trainable or {k: True for k in params}
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        names = [k for k in p if mask[k]]
+        self.rot = None
+        with torch.enable_grad():
+            total, terms = loss_fn(p, it, g)
+            grads = torch.autograd.grad(total, [p[k] for k in names],
+                                        allow_unused=True)
+        return {"total": float(total),
+                "terms": {k: float(v) for k, v in terms.items()},
+                "grad": {k: (torch.zeros_like(p[k]) if d is None else d)
+                         .detach().cpu().numpy()
+                         for k, d in zip(names, grads)},
+                "rot": (None if self.rot is None
+                        else self.rot.detach().cpu().numpy())}
+
+
+def draw_digests(draws):
+    """Per sampler draw (human, then object) and frame, one digest of all
+    that frame's random numbers (the batch axis is 0 of ``init_u`` and 1
+    of the per-round draws, as ``ReconFitter._local_inputs`` slices
+    them)."""
+    import hashlib
+
+    return [[hashlib.sha256(b"".join(
+        (v[b] if k == "init_u" else v[:, b]).contiguous().cpu().numpy()
+        .tobytes() for k, v in sorted(d.items()))).hexdigest()
+        for b in range(d["init_u"].shape[0])] for d in draws]
+
+
+def dp_stepwise(torch, rec, files, pinned=None, rows=None):
+    """``rec.reconstruct(files)`` (generator seed 1, as the timed call)
+    under a ``PhaseTap``; returns its phases."""
+    rec.fitter.record_traces = False
+    with PhaseTap(torch, pinned, rows) as tap:
+        rec.reconstruct(files, generator=torch.Generator(
+            device=rec.device).manual_seed(1))
+    return tap.phases
+
+
+def stepwise_errors(ref, procs):
+    """Each phase's two tapped steps of the processes ``procs`` ([(phases,
+    rows)], together the whole batch) against one process's ``ref``, as
+    ratios to their tolerances: "terms" (every term and the total, summed
+    over the processes, relative; a term below 1e-6 of the total counts
+    against that), "grad" (the processes' gradients against their rows of
+    ref's, in norm, relative), "rot" and "input" (largest absolute
+    difference); "draws" and "gen" are infinite when a frame's
+    point-generation draws or the generator's state entering the first
+    phase differ, else 0. Returns (per-phase dicts, the worst ratio of
+    each)."""
+    per = []
+    for i, r in enumerate(ref):
+        e = {"terms": 0.0, "grad": 0.0, "rot": 0.0}
+        for at in ("first", "last"):
+            ps = [(p[i][at], rows) for p, rows in procs]
+            want = r[at]
+            floor = max(1e-6 * abs(want["total"]), 1e-30)
+            terms = [abs(sum(p["terms"].get(k, np.nan) for p, _ in ps) - v)
+                     / max(abs(v), floor) for k, v in want["terms"].items()]
+            terms.append(abs(sum(p["total"] for p, _ in ps) - want["total"])
+                         / max(abs(want["total"]), 1e-30))
+            num = sum(float(((p["grad"][k] - v[rows]) ** 2).sum())
+                      for p, rows in ps for k, v in want["grad"].items())
+            den = sum(float((v ** 2).sum()) for v in want["grad"].values())
+            rot = (0.0 if want["rot"] is None else
+                   max(float(np.abs(p["rot"] - want["rot"][rows]).max())
+                       for p, rows in ps))
+            for k, v in (("terms", float(np.max(terms)) / DP_STEP_RTOL),
+                         ("grad", (num / max(den, 1e-30)) ** 0.5
+                          / DP_GRAD_RTOL),
+                         ("rot", rot / DP_ROT_ATOL)):
+                e[k] = max(e[k], np.inf if np.isnan(v) else v)
+        e["input"] = max(float(np.abs(p[i]["input"][k] - v[rows]).max())
+                         for p, rows in procs
+                         for k, v in r["input"].items()) / DP_INPUT_ATOL
+        per.append(e)
+    worst = {k: max(e[k] for e in per) for k in per[0]}
+    same = all(p[0]["draws"] == [d[rows] for d in ref[0]["draws"]]
+               for p, rows in procs)
+    worst["draws"] = 0.0 if same else np.inf
+    same = all(np.array_equal(p[0]["gen"], ref[0]["gen"]) for p, _ in procs)
+    worst["gen"] = 0.0 if same else np.inf
+    return per, worst
+
+
+def check_stepwise(label, ref, procs, card, control=None):
+    """The ranks' phases ``procs`` against one process's ``ref``: every
+    ratio of ``stepwise_errors`` at most 1; with ``control`` (independent
+    one-frame fits held the same way) those must exceed 1 on the terms, the
+    gradient and the draws."""
+    per, worst = stepwise_errors(ref, procs)
+    log(f"  {label}, each phase's first and last step from one process's "
+        "state: "
+        + "; ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + " of their tolerances (terms " + str(DP_STEP_RTOL) + " rel, "
+        f"gradient {DP_GRAD_RTOL} in norm, rotation {DP_ROT_ATOL}, input "
+        f"{DP_INPUT_ATOL}, draws and generator state equal) [{card}]")
+    log("    by phase: " + json.dumps([{k: float(f"{v:.3g}") for k, v in
+                                        e.items()} for e in per]))
+    for at in ("first", "last"):
+        log(f"    one process's terms at each phase's {at} step: "
+            + json.dumps([{k: float(f"{v:.6g}") for k, v in
+                           r[at]["terms"].items()} for r in ref]))
+    if not all(v <= 1.0 for v in worst.values()):
+        raise SystemExit(f"{label}: a tapped step differs from one "
+                         f"process's: {worst}")
+    result = {"worst": worst, "by_phase": per}
+    if control is not None:
+        _, cw = stepwise_errors(ref, control)
+        log("  independent one-frame fits held the same way: "
+            + "; ".join(f"{k} {v:.3g}" for k, v in cw.items())
+            + " of the tolerances")
+        if not (cw["terms"] > 1 and cw["grad"] > 1 and cw["draws"] > 1):
+            raise SystemExit(f"{label}: the check does not tell "
+                             f"independent frames from the joined batch: "
+                             f"{cw}")
+        result["control_worst"] = cw
+    return result
+
+
+def recon_dp_worker(out_dir):
+    """One rank of a data-parallel reconstruction (RANK, WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT, LOCAL_RANK from the environment;
+    OUT_DIR/spec.json says what to fit): with "gloo", every rank on
+    cuda:0 (or spec's "device") in a gloo group it joins itself (NCCL
+    allows one rank per device); with "nccl", ``make_mesh()`` as under
+    ``torchrun``, each rank on its own card. Each global batch:
+    ``Reconstructor(mesh=)`` after a warm-up, the launches and the whole
+    result (numpy) into OUT_DIR; then, with spec's "stepwise", each batch
+    again under a ``PhaseTap`` pinned to OUT_DIR/ref_b<batch>.pkl (one
+    process's phases), its phases into OUT_DIR; last, the timed all-sum of
+    a step's two floats."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from chore_tpu_torch.ops import nn as nn_mod
+    from chore_tpu_torch.ops import silhouette as sil_mod
+    from chore_tpu_torch.parallel import all_sum, local_batch_slice, make_mesh
+
+    with open(os.path.join(out_dir, "spec.json")) as f:
+        spec = json.load(f)
+    # the ranks share the host's cores: a thread pool per rank as wide as
+    # the host would have them spin against each other
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // int(os.environ["WORLD_SIZE"])))
+    if spec["backend"] == "gloo":
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{os.environ['MASTER_PORT']}",
+            world_size=int(os.environ["WORLD_SIZE"]),
+            rank=int(os.environ["RANK"]))
+        mesh = make_mesh(device=spec.get("device") or "cuda:0")
+    else:
+        mesh = make_mesh()
+    on_card = mesh.device.type == "cuda"
+    if not on_card:
+        count_plain_launches()
+    counters = {"nn_grouped": (nn_mod.launches, "nn_grouped"),
+                "coverage_fwd": (sil_mod.launches, "coverage_fwd"),
+                "coverage_bwd": (sil_mod.launches, "coverage_bwd")}
+    rec = dp_reconstructor(spec, out_dir, mesh=mesh)
+    res = {"rank": mesh.rank, "world": mesh.size,
+           "device": str(mesh.device), "batches": []}
+    for b, files in enumerate(spec["batches"]):
+        out, stats = dp_reconstruct(torch, rec, files, counters,
+                                    f"recon_dp rank {mesh.rank}")
+        np.savez(os.path.join(out_dir, f"rank{mesh.rank}_b{b}.npz"),
+                 **dp_result(out))
+        res["batches"].append(stats)
+    for b, files in enumerate(spec["batches"] if spec.get("stepwise")
+                              else []):
+        with open(os.path.join(out_dir, f"ref_b{b}.pkl"), "rb") as f:
+            ref = pickle.load(f)
+        rows = local_batch_slice(len(files), mesh.size, mesh.rank)
+        phases = dp_stepwise(torch, rec, files, ref, rows)
+        with open(os.path.join(out_dir, f"rank{mesh.rank}_steps_b{b}.pkl"),
+                  "wb") as f:
+            pickle.dump((phases, rows), f)
+    x = torch.zeros(2, device=mesh.device)
+    all_sum(x, mesh)
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        float(all_sum(x, mesh)[0])
+    res["all_sum_ms"] = (time.perf_counter() - t0) * 10.0
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def spawn_dp_ranks(spec, world, out_dir, backend, timeout=900):
+    """Run ``world`` ranks of ``recon_dp_worker`` (this script, one
+    process each) on ``spec``; returns each rank's json."""
+    import socket
+
+    spec = dict(spec, backend=backend)
+    with open(os.path.join(out_dir, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port))
+        env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--recon-dp-worker",
+             out_dir], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    try:
+        for p in procs:
+            text, _ = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                log(text[-6000:])
+                raise SystemExit(f"recon_dp: a rank exited {p.returncode}")
+    finally:
+        for p in procs:
+            p.kill()
+    return [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+            for r in range(world)]
+
+
+def check_dp_ranks(ranks, batches, wants, noises, out_dir, label, card,
+                   refs, controls=None):
+    """Every rank's whole result of each global batch against one
+    process's (``wants``: (result, stats) per batch; ``noises``: each
+    batch's ``dp_control``); every rank holds the same bits; logs
+    images/s; then each batch's ``check_stepwise`` (``refs``: one
+    process's phases per batch; ``controls``: independent one-frame fits
+    per batch, or None). Returns the stepwise results."""
+    import pickle
+
+    steps = []
+    for b, (files, (want, ws), (noise, split)) in enumerate(
+            zip(batches, wants, noises)):
+        got = [dict(np.load(os.path.join(out_dir,
+                                          f"rank{r['rank']}_b{b}.npz")))
+               for r in ranks]
+        if any(dp_diff(g, got[0]) for g in got[1:]):
+            raise SystemExit(f"{label}: the ranks returned different results")
+        diff, loss0, first = dp_compare(
+            f"{label} global batch {len(files)}", got[0],
+            ranks[0]["batches"][b], dp_result(want), ws, noise)
+        sec = max(r["batches"][b]["sec"] for r in ranks)
+        log(f"  {label}, global batch {len(files)} over {len(ranks)} ranks: "
+            f"{sec:.4f} s, {len(files) / sec:.3f} images/s (one process: "
+            f"{ws['images_per_s']:.3f}); every rank returned the same "
+            f"result; iterations {json.dumps(ws['iters'])} as one process; "
+            f"batch loss before the first step {loss0:.3g} relative from "
+            f"one process's (tol {DP_LOSS0_RTOL}), the trace first 1e-3 "
+            f"apart at step {first} of {len(ws['trace'])}; parameters "
+            f"within {diff:.3g} (tol {max(DP_TOL, DP_NOISE_FACTOR * noise):.3g}"
+            f"; the crop centre x (1 + 2^-20) moves one process's by "
+            f"{noise:.3g}, its trace first 1e-3 apart at step {split}) "
+            f"[{card}]")
+        for r in ranks:
+            s = r["batches"][b]
+            log(f"    rank {r['rank']} ({r['device']}): {s['sec']:.4f} s, "
+                f"launches {json.dumps(s['launches'])} (joint steps "
+                f"{s['joint_steps']}), device peak "
+                f"{s['device_peak_gib']:.2f} GiB")
+        procs = []
+        for r in ranks:
+            with open(os.path.join(out_dir, f"rank{r['rank']}_steps_b{b}.pkl"),
+                      "rb") as f:
+                procs.append(pickle.load(f))
+        steps.append(check_stepwise(
+            f"{label} global batch {len(files)}", refs[b], procs, card,
+            controls[b] if controls else None))
+    log(f"  all-sum of a step's two floats: "
+        f"{json.dumps([round(r['all_sum_ms'], 4) for r in ranks])} ms per "
+        f"call by rank (100 calls, host-synchronised)")
+    return steps
+
+
+def run_recon_dp(torch, dev, card, counters, spec=None):
+    """(a) one process reconstructs the B=1 and the B=2 batch (the example
+    frame and a frame that differs from it); (b) two processes, one frame
+    each, through ``Reconstructor(mesh=make_mesh())`` on this card in a
+    gloo group: every rank returns the same whole result, with (a)'s
+    B=2 iterations, batch loss before the first step and parameters
+    (``dp_compare``, a gross bound from ``dp_control``'s rounding-sized
+    change of (a)), each rank launching K1 once per joint step and K2/K3
+    once per sil step, and each phase's first and last step held to one
+    process's (``check_stepwise``, which independent one-frame fits must
+    fail);
+    (c) ``cli.recon.main`` with
+    ``--data-parallel -bs 2`` in one process (a one-process mesh) over a
+    four-frame sequence writes the files of the plain ``-bs 2`` run.
+    ``spec``: ChoreConfig/FitConfig/SamplerConfig keywords and the ranks'
+    device (``dp_reconstructor``; a CPU rehearsal), else the release
+    config on this card."""
+    import pickle
+    import tempfile
+
+    spec = spec or {}
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        files = write_dp_seq(tmp, 4)
+        rec = dp_reconstructor(spec, tmp, device=dev)
+        one = {}
+        for B in (1, 2):
+            out, stats = dp_reconstruct(torch, rec, files[:B], counters,
+                                        f"recon_dp one process B={B}")
+            one[B] = (out, stats)
+            log(f"  (a) one process, B={B}: {stats['sec']:.4f} s, "
+                f"{stats['images_per_s']:.3f} images/s, launches "
+                f"{json.dumps(stats['launches'])} (joint steps "
+                f"{stats['joint_steps']}), device peak "
+                f"{stats['device_peak_gib']:.2f} GiB [{card}]")
+        noise = dp_control(torch, rec, files[:2], counters, one[2])
+        ref = dp_stepwise(torch, rec, files[:2])
+        control = [(dp_stepwise(torch, rec, files[k:k + 1], ref,
+                                slice(k, k + 1)), slice(k, k + 1))
+                   for k in range(2)]
+        result["one_process"] = {B: {k: v for k, v in s.items()
+                                     if k != "trace"}
+                                 for B, (_, s) in one.items()}
+        result["rounding_control"] = noise
+        del rec
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out_dir = os.path.join(tmp, "ranks")
+        os.makedirs(out_dir)
+        with open(os.path.join(out_dir, "ref_b0.pkl"), "wb") as f:
+            pickle.dump(ref, f)
+        ranks = spawn_dp_ranks(dict(spec, batches=[files[:2]], stepwise=True),
+                               2, out_dir, "gloo")
+        result["stepwise"] = check_dp_ranks(
+            ranks, [files[:2]], [one[2]], [noise], out_dir,
+            "(b) Reconstructor(mesh=) on one card, gloo", card, [ref],
+            [control])
+        for r in ranks:
+            for st in r["batches"]:
+                st.pop("trace")
+        result["two_ranks"] = ranks
+        result["cli"] = dp_cli_files(torch, tmp, card, spec)
+    return result
+
+
+def dp_cli_files(torch, tmp, card, spec):
+    """(c): ``cli.recon.main`` over the four-frame sequence, ``-bs 2``,
+    then ``--data-parallel -bs 2`` (a one-process mesh), the schedule cut
+    to ``DP_CLI_FIT`` (``spec``'s fit keywords over it, its device):
+    the same files, numbers within ``DP_TOL``."""
+    import pickle
+
+    import chore_tpu_torch.cli.recon as crecon
+    from chore_tpu_torch.config import ChoreConfig
+    from chore_tpu_torch.recon.fitter import FitConfig
+    from chore_tpu_torch.utils.meshio import load_ply
+
+    seq = os.path.join(tmp, "dp_seq")
+    fit_config = ChoreConfig.fit_config
+    cut = FitConfig(**dict(DP_CLI_FIT, **spec.get("fit", {})))
+    ChoreConfig.fit_config = lambda self: cut
+    device = ["--device", spec["device"]] if spec.get("device") else []
+    secs = {}
+    try:
+        for name, flags in (("plain", []), ("dp", ["--data-parallel"])):
+            t0 = time.perf_counter()
+            crecon.main(["chore-release", "-s", seq, "-sn", "fit", "-o",
+                         os.path.join(tmp, f"cli_{name}"), "-on",
+                         "basketball", "-bs", "2", "--exp-root",
+                         os.path.join(tmp, "experiments"), *device, *flags])
+            if not device:
+                torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+    finally:
+        ChoreConfig.fit_config = fit_config
+
+    def listing(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+
+    a, b = (os.path.join(tmp, f"cli_{n}") for n in ("plain", "dp"))
+    names = listing(a)
+    if listing(b) != names or sum(n.endswith(".ply") for n in names) != 8:
+        raise SystemExit(f"recon_dp cli: files {listing(b)} vs {names}")
+    diff = 0.0
+    for n in names:
+        if n.endswith(".ply"):
+            (va, fa), (vb, fb) = load_ply(os.path.join(a, n)), load_ply(
+                os.path.join(b, n))
+            if not np.array_equal(fa, fb):
+                raise SystemExit(f"recon_dp cli: faces of {n} differ")
+            diff = max(diff, float(np.abs(va - vb).max()))
+        elif n.endswith(".pkl"):
+            with open(os.path.join(a, n), "rb") as f:
+                pa = pickle.load(f)
+            with open(os.path.join(b, n), "rb") as f:
+                pb = pickle.load(f)
+            if set(pa) != set(pb):
+                raise SystemExit(f"recon_dp cli: keys of {n} differ")
+            diff = max([diff] + [float(np.abs(np.asarray(pa[k], np.float64)
+                                             - np.asarray(pb[k])).max())
+                                 for k in pa])
+    if not diff <= DP_TOL:
+        raise SystemExit(f"recon_dp cli: --data-parallel files {diff:.3g} "
+                         f"from the plain run's (tol {DP_TOL})")
+    log(f"  (c) cli.recon.main -bs 2 over 4 frames ({json.dumps(DP_CLI_FIT)}"
+        f"): plain {secs['plain']:.2f} s, --data-parallel {secs['dp']:.2f} s;"
+        f" {len(names)} files, equal within {diff:.3g} (tol {DP_TOL}) "
+        f"[{card}]")
+    return {"sec": secs, "max_diff": diff}
+
+
+def run_recon_ddp(torch, card, counters, world):
+    """Data-parallel reconstruction on ``world`` cards (one process each,
+    NCCL) at global batch 4 and 8, against one card fitting B=1, 4 and 8:
+    images/s, and each result held to the one-card fit of the same
+    global batch as the recon_dp phase holds its ranks (without the
+    independent-frames control)."""
+    import pickle
+    import tempfile
+
+    dev = torch.device("cuda:0")
+    with tempfile.TemporaryDirectory() as tmp:
+        files = write_dp_seq(tmp, 8)
+        rec = dp_reconstructor({}, tmp, device=dev)
+        one = {}
+        for B in (1, 4, 8):
+            one[B] = dp_reconstruct(torch, rec, files[:B], counters,
+                                    f"recon ddp one card B={B}")
+            log(f"  one card, B={B}: {one[B][1]['sec']:.4f} s, "
+                f"{one[B][1]['images_per_s']:.3f} images/s, device peak "
+                f"{one[B][1]['device_peak_gib']:.2f} GiB [{card}]")
+        noises = [dp_control(torch, rec, files[:B], counters, one[B])
+                  for B in (4, 8)]
+        batches = [files[:4], files[:8]]
+        refs = [dp_stepwise(torch, rec, b) for b in batches]
+        del rec
+        torch.cuda.empty_cache()
+        out_dir = os.path.join(tmp, "ranks")
+        os.makedirs(out_dir)
+        for b, ref in enumerate(refs):
+            with open(os.path.join(out_dir, f"ref_b{b}.pkl"), "wb") as f:
+                pickle.dump(ref, f)
+        ranks = spawn_dp_ranks({"batches": batches, "stepwise": True}, world,
+                               out_dir, "nccl")
+        steps = check_dp_ranks(ranks, batches, [one[4], one[8]], noises,
+                               out_dir, f"reconstruction on {world} cards, "
+                               "nccl", card, refs)
+    for r in ranks:
+        for st in r["batches"]:
+            st.pop("trace")
+    return {"one_card": {B: {k: v for k, v in s.items() if k != "trace"}
+                         for B, (_, s) in one.items()},
+            "rounding_control": noises, "ranks": ranks, "stepwise": steps}
+
+
+# --------------------------------------------------------------------- #
 # optional phase: where the fit's time goes (torch.profiler)
 def run_profile(torch, dev, card, out_dir):
     """A release-width fit at its defaults (the silhouette phase on) with
@@ -2310,11 +3130,16 @@ def main(argv=None):
     ap.add_argument("--ddp-worker", default=None, metavar="DIR",
                     help=argparse.SUPPRESS)
     ap.add_argument("--ddp-device", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--recon-dp-worker", default=None, metavar="DIR",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None,
                     help="directory to write the full profile table to")
     args = ap.parse_args(argv)
     if args.ddp_worker:
         ddp_worker(args.ddp_worker, args.ddp_device)
+        return 0
+    if args.recon_dp_worker:
+        recon_dp_worker(args.recon_dp_worker)
         return 0
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES + OPT_IN)
@@ -2433,6 +3258,15 @@ def main(argv=None):
             kernels[name]["launches"] = demo["launches"][name]
             paths[name]["demo"] = demo["launches"][name]
 
+    if "recon_dp" in phases:
+        phase("recon_dp")
+        dp = run_recon_dp(torch, dev, card, counters)
+        for name in kernels:  # each rank's launches, counted in the rank
+            for r in dp["two_ranks"]:
+                paths[name][f"recon_dp_rank{r['rank']}"] = \
+                    r["batches"][0]["launches"][name]
+        log(json.dumps({"recon_dp": dp, "card": card}))
+
     import tempfile
 
     train_profile = None
@@ -2464,6 +3298,9 @@ def main(argv=None):
     if "ddp" in phases:
         phase("ddp")
         log(json.dumps({"ddp": run_ddp(torch, card), "card": card}))
+        log(json.dumps({"recon_ddp": run_recon_ddp(
+            torch, card, counters, torch.cuda.device_count()),
+            "card": card}))
 
     if "loader" in phases:
         phase("loader")

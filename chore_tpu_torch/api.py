@@ -9,7 +9,10 @@ object:
     rec.save(out, "result_dir")                   # plys + overlay
 
 Runs on the card unless ``device="cpu"``; the overlay's z-buffer runs on
-the same device. Data-parallel reconstruction comes with DDP.
+the same device. Data-parallel reconstruction runs one process per card,
+each with ``Reconstructor(mesh=parallel.make_mesh())`` (under ``torchrun``):
+every rank passes the same list of images, prepares and fits its own slice,
+and returns the whole result.
 """
 from __future__ import annotations
 
@@ -27,6 +30,12 @@ from chore_tpu_torch.cli.common import (
 from chore_tpu_torch.config import ChoreConfig, load_config
 from chore_tpu_torch.data import TestImagePrep, collate
 from chore_tpu_torch.data.imageio import imwrite, read_bgr_or_none
+from chore_tpu_torch.parallel.mesh import (
+    all_gather_batch,
+    all_gather_object,
+    is_main_process,
+    local_batch_slice,
+)
 from chore_tpu_torch.recon import losses as L
 from chore_tpu_torch.recon.fitter import ReconFitter
 from chore_tpu_torch.utils.meshio import save_ply
@@ -53,13 +62,17 @@ class Reconstructor:
       fit_cfg / sampler_cfg: schedule overrides (default: release).
       crop_info_dir: where the per-image crop info is written (default:
         next to the image).
-      device: the card unless "cpu".
+      device: the card unless "cpu" (the mesh's device with a mesh).
+      mesh: optional ``parallel.Mesh`` for data-parallel fitting, one
+        process per device: the batch is padded to a multiple of the ranks
+        by repeating its last frame, each rank prepares and fits its slice,
+        and every rank returns the whole (trimmed) result.
     """
 
     def __init__(self, exp_name_or_cfg="chore-release", obj_name="basketball",
                  coco=False, exp_root="experiments", fit_cfg=None,
                  sampler_cfg=None, gender="male", crop_info_dir=None,
-                 device=None):
+                 device=None, mesh=None):
         if isinstance(exp_name_or_cfg, ChoreConfig):
             cfg = exp_name_or_cfg
         else:
@@ -76,6 +89,8 @@ class Reconstructor:
                 f"cfg.net_img_size={cfg.net_img_size[0]}: the image prep "
                 "scales keypoints into net-input pixels with one and the "
                 "keypoint loss rescales with the other")
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.model = load_trained(cfg, exp_root=exp_root, device=self.device)
         self.smplh = load_smplh(gender, device=self.device)
@@ -87,7 +102,7 @@ class Reconstructor:
             cfg=fit_cfg if fit_cfg is not None else cfg.fit_config(),
             sampler_cfg=(sampler_cfg if sampler_cfg is not None
                          else cfg.sampler_config()),
-            device=self.device,
+            mesh=mesh, device=self.device,
         )
         self.prep = TestImagePrep(
             image_size=tuple(cfg.net_img_size), crop_size=cfg.loadSize,
@@ -109,30 +124,46 @@ class Reconstructor:
         Returns a dict of numpy arrays (batch first, aligned with the
         input): smpl_verts (B,V,3), smpl_faces, obj_verts (B,Vt,3),
         obj_faces, smpl_params, obj_params, obj_R, pclouds, crop_info,
-        paths.
+        paths. With a mesh, every rank passes the same files (and the
+        draws of the padded global batch) and gets the whole result; the
+        monitor watches rank 0's first frame.
         """
         single = isinstance(rgb_files, (str, os.PathLike))
         files = [rgb_files] if single else list(rgb_files)
-        items = [self.prep.prepare(str(f)) for f in files]
+        mesh = self.fitter.mesh
+        n = mesh.size if mesh is not None else 1
+        # pad to a multiple of the ranks by repeating the last frame; a
+        # padding copy writes no crop info, so no two ranks write one file
+        padded = files + [files[-1]] * (-len(files) % n)
+        mine = (range(len(padded)) if mesh is None
+                else range(len(padded))[local_batch_slice(len(padded), n,
+                                                          mesh.rank)])
+        items = [self.prep.prepare(str(padded[i]),
+                                   save_crop_info=i < len(files))
+                 for i in mine]
         batch = collate(items)
         result = self.fitter.fit_batch(
             batch["images"], batch["crop_center"], batch["mocap_pose"],
             batch["mocap_betas"], batch["kpts"], generator=generator,
-            use_silhouette=use_silhouette, draws=draws, monitor=monitor,
+            use_silhouette=use_silhouette, draws=draws,
+            monitor=monitor if is_main_process() else None, local_batch=True,
         )
-        smpl_verts = self.smplh.verts(result["smpl_params"])
-        obj_verts = self.fitter.transform_obj(
+        result["smpl_verts"] = self.smplh.verts(result["smpl_params"])
+        result["obj_verts"] = self.fitter.transform_obj(
             result["obj_params"], points=self.fitter.template_verts)
+        keys = ("smpl_verts", "obj_verts", "smpl_params", "obj_params",
+                "obj_R", "pclouds")
+        out = {k: _numpy(all_gather_batch(result[k], mesh)) for k in keys}
+        trim = lambda t: ({k: trim(v) for k, v in t.items()}  # noqa: E731
+                          if isinstance(t, dict) else t[:len(files)])
+        out = {k: trim(v) for k, v in out.items()}
+        crop_info = [c for part in all_gather_object(
+            [it["crop_info"] for it in items], mesh) for c in part]
         return {
-            "smpl_verts": _numpy(smpl_verts),
+            **out,
             "smpl_faces": np.asarray(self.smplh.faces),
-            "obj_verts": _numpy(obj_verts),
             "obj_faces": self.template_faces,
-            "smpl_params": _numpy(result["smpl_params"]),
-            "obj_params": _numpy(result["obj_params"]),
-            "obj_R": _numpy(result["obj_R"]),
-            "pclouds": _numpy(result["pclouds"]),
-            "crop_info": [it["crop_info"] for it in items],
+            "crop_info": crop_info[:len(files)],
             "paths": files,
         }
 
@@ -141,11 +172,15 @@ class Reconstructor:
         """Write frameNNNN/smpl.ply and object.ply for every frame of a
         ``reconstruct`` result, and overlay.jpg (the meshes rendered at
         ``render_size`` and pasted onto the photo) when ``overlay`` and the
-        photo is readable; returns the frame directories."""
+        photo is readable; returns the frame directories. With a mesh,
+        only rank 0 writes (every rank holds the whole result)."""
+        stems = [os.path.join(result_dir, f"frame{i:04d}")
+                 for i in range(out["smpl_verts"].shape[0])]
+        if self.fitter.mesh is not None and not is_main_process():
+            return stems
         os.makedirs(result_dir, exist_ok=True)
         written = []
-        for i in range(out["smpl_verts"].shape[0]):
-            stem = os.path.join(result_dir, f"frame{i:04d}")
+        for i, stem in enumerate(stems):
             os.makedirs(stem, exist_ok=True)
             save_ply(os.path.join(stem, "smpl.ply"), out["smpl_verts"][i],
                      out["smpl_faces"])

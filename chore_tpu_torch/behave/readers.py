@@ -301,6 +301,97 @@ def project_points(points, camera_matrix, dist_coeffs):
                     -1)
 
 
+def _distortion(dist_coeffs):
+    d = np.asarray(dist_coeffs, np.float64).reshape(-1)
+    if d.size not in (0, 4, 5, 8, 12, 14):
+        raise ValueError(f"{d.size} distortion coefficients: OpenCV takes "
+                         "4, 5, 8, 12 or 14")
+    k = np.zeros(14)
+    k[:d.size] = d
+    return k
+
+
+_REMAP_BITS = 5  # OpenCV's INTER_BITS: map coordinates in 1/32 pixel
+
+
+def undistort_maps(camera_matrix, dist_coeffs, size):
+    """OpenCV's ``initUndistortRectifyMap(K, dist, I, K, size, CV_16SC2)``:
+    for each pixel of the undistorted (width, height) ``size`` image, the
+    source position in the distorted image in 1/32 pixel, computed in
+    float64 and rounded to nearest even. Returns (ix, iy) int64 (H, W)."""
+    w, h = size
+    K = np.asarray(camera_matrix, np.float64)
+    k1, k2, p1, p2, k3, k4, k5, k6, s1, s2, s3, s4, tau_x, tau_y = \
+        _distortion(dist_coeffs)
+    fx, fy, u0, v0 = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    x = np.broadcast_to((np.arange(w) - u0) / fx, (h, w))
+    y = np.broadcast_to(((np.arange(h) - v0) / fy)[:, None], (h, w))
+    x2, y2 = x * x, y * y
+    r2, xy2 = x2 + y2, 2 * x * y
+    kr = ((1 + ((k3 * r2 + k2) * r2 + k1) * r2)
+          / (1 + ((k6 * r2 + k5) * r2 + k4) * r2))
+    xd = x * kr + p1 * xy2 + p2 * (r2 + 2 * x2) + s1 * r2 + s2 * r2 * r2
+    yd = y * kr + p1 * (r2 + 2 * y2) + p2 * xy2 + s3 * r2 + s4 * r2 * r2
+    t = _tilt_matrix(tau_x, tau_y)
+    tx = t[0, 0] * xd + t[0, 1] * yd + t[0, 2]
+    ty = t[1, 0] * xd + t[1, 1] * yd + t[1, 2]
+    tz = t[2, 0] * xd + t[2, 1] * yd + t[2, 2]
+    inv = np.where(tz != 0, 1.0 / np.where(tz != 0, tz, 1.0), 1.0)
+    u = fx * inv * tx + u0
+    v = fy * inv * ty + v0
+    scale = 1 << _REMAP_BITS
+    return (np.rint(u * scale).astype(np.int64),
+            np.rint(v * scale).astype(np.int64))
+
+
+def remap_linear(img, ix, iy):
+    """OpenCV's ``remap(img, map1, map2, INTER_LINEAR, BORDER_CONSTANT)``
+    with 1/32-pixel maps (``undistort_maps``): the four neighbours of each
+    source position, zero outside the image, weighted by the fractions
+    (1/32 steps). uint8 images sum the weights in OpenCV's 15-bit fixed
+    point and round; float images in float32."""
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    mask = (1 << _REMAP_BITS) - 1
+    sx, sy = ix >> _REMAP_BITS, iy >> _REMAP_BITS
+    ax, ay = ix & mask, iy & mask
+    scale = 1 << _REMAP_BITS
+    pad = np.zeros((h + 2, w + 2) + img.shape[2:], img.dtype)
+    pad[1:-1, 1:-1] = img
+    # out-of-image taps read the zero border (clipped into the pad ring)
+    cx0 = np.clip(sx, -1, w) + 1
+    cx1 = np.clip(sx + 1, -1, w) + 1
+    cy0 = np.clip(sy, -1, h) + 1
+    cy1 = np.clip(sy + 1, -1, h) + 1
+    taps = (pad[cy0, cx0], pad[cy0, cx1], pad[cy1, cx0], pad[cy1, cx1])
+    wts = ((scale - ay) * (scale - ax), (scale - ay) * ax,
+           ay * (scale - ax), ay * ax)  # in 1/1024
+    extra = (None,) * (img.ndim - 2)
+    if img.dtype == np.uint8:
+        # the weights in 1/32768 (exact: 32768 / 1024 = 32), summed in
+        # integers and rounded back by >> 15, as OpenCV's 8-bit remap
+        acc = sum(t.astype(np.int64) * (32 * wt)[(...,) + extra]
+                  for t, wt in zip(taps, wts))
+        return np.clip((acc + (1 << 14)) >> 15, 0, 255).astype(np.uint8)
+    acc = None
+    for t, wt in zip(taps, wts):
+        term = t.astype(np.float32) * (wt.astype(np.float32)
+                                       / np.float32(1024))[(...,) + extra]
+        acc = term if acc is None else acc + term
+    return acc.astype(img.dtype)
+
+
+def undistort_image(img, camera_matrix, dist_coeffs):
+    """``cv2.undistort(img, camera_matrix, dist_coeffs)``: the undistorted
+    image of the same size, pixels whose source falls outside the image
+    black. Within OpenCV's own 1/32-pixel fixed point: a source position
+    that rounds the other way (float64 noise at a 1/64 boundary) moves a
+    pixel by one 1/32 step."""
+    h, w = np.asarray(img).shape[:2]
+    ix, iy = undistort_maps(camera_matrix, dist_coeffs, (w, h))
+    return remap_linear(img, ix, iy)
+
+
 class KinectCalib:
     """Color-camera intrinsics + depth->pointcloud table + depth<->color
     mappings (reference: kinect_calib.py:13-181)."""
@@ -330,11 +421,10 @@ class KinectCalib:
                               if c2d else np.zeros(3))
 
     def undistort(self, img):
-        """``cv2.undistort``: no path of the system calls it; not ported yet
-        (ROADMAP.md Queue 1, "KinectCalib.undistort")."""
-        raise NotImplementedError(
-            "KinectCalib.undistort (cv2.undistort) is not ported yet: no "
-            "path of the system uses it (ROADMAP.md Queue 1)")
+        """``cv2.undistort(img, calibration_matrix, dist_coeffs)`` of a
+        color image (``undistort_image``)."""
+        return undistort_image(img, self.calibration_matrix,
+                               self.dist_coeffs)
 
     def project_points(self, points):
         """Distortion-aware projection into the color image (N, 2):

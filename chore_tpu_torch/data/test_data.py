@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import threading
 
 import numpy as np
 
@@ -102,10 +103,11 @@ class TestImagePrep:
         return new_img
 
     # ------------------------------------------------------------------ #
-    def prepare(self, rgb_file):
+    def prepare(self, rgb_file, save_crop_info=True):
         """-> dict with images (S, S, 5), crop_center, resize_scale,
         crop_scale, old_crop_center, kpts (net-input pixels), mocap pose and
-        betas."""
+        betas. ``save_crop_info=False`` writes no crop-info file (a padding
+        copy of a frame another process prepares)."""
         person_mask, obj_mask = iops.load_masks(rgb_file)
         bmin, bmax = iops.masks2bbox([person_mask, obj_mask])
         crop_center = (bmin + bmax) // 2
@@ -163,7 +165,8 @@ class TestImagePrep:
             "crop_scale": scale,
             "crop_size": crop_size,
         }
-        self._save_crop_info(rgb_file, crop_info)
+        if save_crop_info:
+            self._save_crop_info(rgb_file, crop_info)
 
         pose, betas = load_mocap(
             rgb_file.replace(".color.jpg", ".mocap.json")
@@ -197,9 +200,13 @@ class TestImagePrep:
             out = rgb_file.replace(".color.jpg", ".crop_info.pkl")
         if os.path.isfile(out):
             return
+        # published whole (a rename), so processes that prepare frames at
+        # once never leave a torn file
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}"
         try:
-            with open(out, "wb") as f:
+            with open(tmp, "wb") as f:
                 pickle.dump(crop_info, f)
+            os.replace(tmp, out)
         except OSError:
             pass  # read-only dataset directory: the crop info is optional
 

@@ -2,7 +2,8 @@
 
 ``params_from_jax`` inverts ``chore_tpu/train/torch_import.py``'s mapping
 (``_torch_key``/``_convert_leaf``, copied here, not imported): flax conv
-kernels (kH, kW, I, O) become OIHW, decoder Dense kernels (I, O) become
+kernels (kH, kW, I, O) become OIHW (a grouped conv's (kH, kW, I/G, O)
+becomes torch's (O, I/G, kH, kW) by the same transpose), decoder Dense kernels (I, O) become
 Conv1d (O, I, 1), GroupNorm ``scale`` becomes ``weight``. The result uses the
 reference torch names, so the same state dict also describes a reference
 ``.tar`` checkpoint, which ``load_reference_checkpoint`` reads.

@@ -59,11 +59,21 @@ class HGFilter(nn.Module):
     (bfloat16 in the release "mixed" precision); norms run in float32.
     ``remat``: each hourglass keeps only its input for the backward pass
     and recomputes the rest there (``chore_tpu``'s ``nn.remat``; less
-    activation memory for about a third more encoder work)."""
+    activation memory for about a third more encoder work).
+    ``grouped_heads``: the HGFilterGConv variant (unused by the release
+    config): each stack's head ``l{i}`` and re-injection convs
+    ``bl{i}``/``al{i}`` are grouped 1x1 convs with one group per feature
+    channel; ``out_dim`` must be a multiple of ``features``."""
 
     def __init__(self, num_stack=5, depth=2, features=256, out_dim=256,
-                 in_channels=5, dtype=torch.float32, remat=False):
+                 in_channels=5, dtype=torch.float32, remat=False,
+                 grouped_heads=False):
         super().__init__()
+        if grouped_heads and out_dim % features:
+            raise ValueError(
+                "grouped_heads requires out_dim % features == 0 "
+                f"(got {out_dim} % {features})")
+        groups = features if grouped_heads else 1
         self.num_stack = num_stack
         self.dtype = dtype
         self.remat = remat
@@ -77,10 +87,13 @@ class HGFilter(nn.Module):
             self.add_module(f"top_m_{i}", ConvBlock(features, features, dtype))
             self.add_module(f"conv_last{i}", nn.Conv2d(features, features, 1))
             self.add_module(f"bn_end{i}", group_norm(features))
-            self.add_module(f"l{i}", nn.Conv2d(features, out_dim, 1))
+            self.add_module(f"l{i}", nn.Conv2d(features, out_dim, 1,
+                                               groups=groups))
             if i < num_stack - 1:
-                self.add_module(f"bl{i}", nn.Conv2d(features, features, 1))
-                self.add_module(f"al{i}", nn.Conv2d(out_dim, features, 1))
+                self.add_module(f"bl{i}", nn.Conv2d(features, features, 1,
+                                                    groups=groups))
+                self.add_module(f"al{i}", nn.Conv2d(out_dim, features, 1,
+                                                    groups=groups))
 
     def forward(self, x, train=True):
         """x (B, C, H, W) -> (outputs list, tmpx, normx), NCHW; eval

@@ -3,7 +3,8 @@
 Counterpart of ``chore_tpu/ops/camera.py``: normalized Kinect intrinsics
 scaled to a 4:3 image, pin-hole projection, then re-centring on a crop
 square of ``crop_size`` pixels mapped to [-1, 1]. Points stay channels-last
-(B, N, 3).
+(B, N, 3). ``OrthographicCamera`` is the reference's unused orthographic
+stand-in, kept for the API.
 """
 from __future__ import annotations
 
@@ -93,3 +94,20 @@ class PerspectiveCamera:
         else:
             nx, ny = self.normalize_crop(px, py, crop_center)
         return torch.cat([nx, ny, points[..., 2:3]], dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class OrthographicCamera:
+    """Approximate orthographic camera (``chore_tpu``'s, unused by the
+    release pipeline): points already relative to the SMPL centre in
+    normalized units project to themselves, depth passed through.
+    ``scale`` is stored and never applied, and ``load_size`` is the
+    caller's value, as in ``chore_tpu``."""
+
+    load_size: int = 512
+    scale: float = 0.75
+
+    def project_points(self, points, crop_center=None):
+        """(B, N, 3) -> the same points as a tensor (no crop re-centring)."""
+        del crop_center
+        return torch.as_tensor(points)

@@ -101,3 +101,19 @@ def chamfer_eval(x, y):
     card) and each distance is re-expressed as |x - y[idx]|, as on the JAX
     package's TPU route."""
     return chamfer_eval_multi([(x, y)])[0]
+
+
+def masked_chamfer_sq(x, y, x_mask, y_mask):
+    """pytorch3d-style masked squared Chamfer of one cloud pair (N, 3) x
+    (M, 3): the mean over valid x of the squared distance to the nearest
+    valid y, plus the same from y; invalid points neither query nor serve
+    as references, and the result is 0 when either side is empty. Both
+    directions are one 1-NN launch on the card."""
+    (dx, _), (dy, _) = nn_sqdist_multi([
+        dict(x=x[None], y=y[None], y_mask=y_mask[None]),
+        dict(x=y[None], y=x[None], y_mask=x_mask[None])])
+    nx, ny = x_mask.sum(), y_mask.sum()
+    zero = dx.new_zeros(())
+    lx = torch.where(x_mask, dx[0], zero).sum() / nx.clamp(min=1)
+    ly = torch.where(y_mask, dy[0], zero).sum() / ny.clamp(min=1)
+    return torch.where((nx > 0) & (ny > 0), lx + ly, zero)

@@ -34,13 +34,20 @@ def project_so3(mat):
     return u @ vt_fixed
 
 
+def so3_jitter(shape, generator=None, device=None, dtype=torch.float32):
+    """The 1e-4 * U[0, 1) jitter of ``project_so3_jittered``, drawn at
+    ``shape`` (a data-parallel rank draws the global batch's and keeps its
+    slice)."""
+    return 1e-4 * torch.rand(shape, generator=generator, device=device,
+                             dtype=dtype)
+
+
 def project_so3_jittered(mat, generator=None, noise=None):
-    """SO(3) projection after a 1e-4 * U[0, 1) jitter that keeps the SVD
-    away from degenerate (repeated singular value) inputs. ``generator``
-    lives on ``mat``'s device; ``noise`` overrides the draw."""
+    """SO(3) projection after a ``so3_jitter`` that keeps the SVD away from
+    degenerate (repeated singular value) inputs. ``generator`` lives on
+    ``mat``'s device; ``noise`` overrides the draw."""
     if noise is None:
-        noise = 1e-4 * torch.rand(mat.shape, generator=generator,
-                                  device=mat.device, dtype=mat.dtype)
+        noise = so3_jitter(mat.shape, generator, mat.device, mat.dtype)
     return project_so3(mat + noise)
 
 

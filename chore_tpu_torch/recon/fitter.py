@@ -14,7 +14,15 @@ with the phase schedule kept exactly:
           -> 'joint' x<=110 (t, s only; +contact +collision; lr .002,
              early stop, decay (it+1)/5 continuing the global schedule)
 
-``fit_batch(use_silhouette=False)`` skips the 'sil' phase. ``chore_tpu``'s
+``fit_batch(use_silhouette=False)`` skips the 'sil' phase. With a ``mesh``
+(``parallel.make_mesh()``, one process per device) the frames of a batch are
+split over the ranks: the field is replicated, each rank fits its own slice,
+every loss term becomes the rank's share of the global batch's value, each
+optimizer step sums the loss over the ranks, and every random draw is made at
+the global batch's shape from the same seeded generator on every rank, each
+rank keeping its slice -- so the ranks compute what one process computes on
+the whole batch, up to the rounding of float sums taken in another order or
+by kernels chosen for another shape. ``chore_tpu``'s
 ``fused_pipeline`` (one XLA program per fit, a TPU dispatch workaround) has
 no counterpart here.
 """
@@ -32,9 +40,15 @@ from chore_tpu_torch.ops.rotation import (
     init_object_orientation,
     project_so3,
     project_so3_jittered,
+    so3_jitter,
 )
+from chore_tpu_torch.parallel.mesh import local_batch_slice, replicate
 from chore_tpu_torch.recon import losses as L
-from chore_tpu_torch.recon.generator import Generator, SamplerConfig
+from chore_tpu_torch.recon.generator import (
+    Generator,
+    SamplerConfig,
+    make_draws,
+)
 from chore_tpu_torch.recon.optimize import PhaseSpec, freeze_all_except, run_phase
 from chore_tpu_torch.recon.silhouette import (
     SilhouetteLossROI,
@@ -88,20 +102,28 @@ class ReconFitter:
       smplh: SMPLH on the same device.
       template_verts/template_faces: canonical object template (numpy).
       weights: loss weight table (L.BEHAVE_WEIGHTS by default).
+      mesh: optional ``parallel.Mesh`` for data-parallel fitting: the
+        model's weights are broadcast from rank 0, and ``fit_batch`` fits
+        this rank's slice of the global batch (see the module docstring).
       record_traces: fit results carry the per-step loss traces of every
         phase under 'smpl_trace'/'obj_trace' (debugging and parity tests).
-      device: the card unless ``device="cpu"``.
+      device: the card unless ``device="cpu"``; the mesh's device by
+        default when there is a mesh.
     """
 
     def __init__(self, model, smplh: SMPLH, template_verts, template_faces,
                  weights=None, cfg: FitConfig = FitConfig(),
                  sampler_cfg: SamplerConfig = SamplerConfig(),
-                 assets_dir=None, record_traces=False, device=None):
+                 assets_dir=None, mesh=None, record_traces=False,
+                 device=None):
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = dev = resolve_device(device)
+        self.mesh = mesh
         if smplh.device != dev:
             raise ValueError(f"smplh lives on {smplh.device}, fitter on {dev}")
         self.generator = Generator(model, sampler_cfg, device=dev)
-        self.model = self.generator.model
+        self.model = replicate(self.generator.model, mesh)
         self.smplh = smplh
         self.cfg = cfg
         self.weights = weights if weights is not None else L.BEHAVE_WEIGHTS
@@ -146,7 +168,8 @@ class ReconFitter:
         iteration count and, when record_traces, the per-step trace."""
         with self.timer.phase(f"phase_{name}"):
             out = run_phase(loss_fn, params, spec, generator,
-                            prev_loss=prev_loss, record=self.record_traces)
+                            prev_loss=prev_loss, record=self.record_traces,
+                            mesh=self.mesh)
         if self.record_traces:
             traces[name] = out[3]
         iters[name] = out[2]
@@ -183,6 +206,7 @@ class ReconFitter:
             if kpts_w is not None:
                 ld["j2d"] = kpts_w * L.j2d_loss(joints, kpts2d, crop_center,
                                                 self.camera, cfg.net_in_size)
+            ld = self._shares(ld)
             return L.weighted_sum(ld, self.weights, decay), ld
 
         traces, iters = {}, {}
@@ -232,6 +256,27 @@ class ReconFitter:
              + obj_params["obj_t"][:, None])
         return v * obj_params["obj_s"][:, None, None]
 
+    def _shares(self, ld):
+        """Under a mesh, this rank's share of each term of the global
+        batch's loss: a mean over the rank's equal slice divided by the
+        rank count; the contact term, whose pair count is already the
+        global batch's (``contact_loss(mesh=)``), as it is."""
+        if self.mesh is None or self.mesh.size == 1:
+            return ld
+        return {k: v if k == "contact" else v / self.mesh.size
+                for k, v in ld.items()}
+
+    def _project_jittered(self, mat, generator):
+        """``project_so3_jittered`` with the jitter drawn at the global
+        batch's shape (this rank keeping its slice) under a mesh."""
+        if self.mesh is None:
+            return project_so3_jittered(mat, generator)
+        n, B = self.mesh.size, mat.shape[0] * self.mesh.size
+        noise = so3_jitter((B,) + mat.shape[1:], generator, mat.device,
+                           mat.dtype)
+        return project_so3_jittered(
+            mat, noise=noise[local_batch_slice(B, n, self.mesh.rank)])
+
     def _sil_sigma(self, it):
         """Coverage sigma of sil-phase iteration ``it``: None (half a pixel)
         unless annealing, else level min(it*L // iter_sil, L-1) of
@@ -272,7 +317,7 @@ class ReconFitter:
             """``it`` is the phase-local iteration (the sil anneal level)."""
             ld = {}
             # one SO(3) projection per step shared by every term
-            R = (project_so3_jittered(op["obj_R"], g) if cfg.svd_jitter
+            R = (self._project_jittered(op["obj_R"], g) if cfg.svd_jitter
                  else project_so3(op["obj_R"]))
             if phase == "sil":
                 ld["mask"], _ = silhouette_loss(
@@ -285,6 +330,7 @@ class ReconFitter:
                     ld["offscreen"] = offscreen_loss(
                         sil_data, self.mesh_verts, R, op["obj_t"],
                         op["obj_s"])
+                ld = self._shares(ld)
                 return L.weighted_sum(ld, self.weights, decay), ld
             obj = self.transform_obj(op, R=R)
             preds_o = self._query(feats, tmpx, obj, crop_center)
@@ -308,9 +354,10 @@ class ReconFitter:
                         L.contact_nn_calls(smpl_verts, obj, **contact)
                         + [L.collision_nn_call(smpl_verts, obj)])
                 ld["contact"] = L.contact_loss(smpl_verts, obj, **contact,
-                                               nn=nn[:2])
+                                               nn=nn[:2], mesh=self.mesh)
                 ld["collide"] = L.collision_loss(smpl_verts, normals, obj,
                                                  nn=nn[2])
+            ld = self._shares(ld)
             return L.weighted_sum(ld, self.weights, decay), ld
 
         traces, iters = {}, {}
@@ -349,10 +396,33 @@ class ReconFitter:
         return obj_params, traces, iters
 
     # ------------------------------------------------------------------ #
+    def _local_inputs(self, inputs, generator, draws, local_batch):
+        """This rank's slice of the inputs, and of the point-generation
+        draws made (or injected) at the global batch's shape: the human's
+        draws, then the object's, the order in which one process's
+        sampler draws them."""
+        n, r = self.mesh.size, self.mesh.rank
+        B = len(inputs[0]) * (n if local_batch else 1)
+        if B % n:
+            raise ValueError(f"batch {B} is not a multiple of the mesh's "
+                             f"{n} ranks (pad it, as cli.recon does)")
+        sl = local_batch_slice(B, n, r)
+        if not local_batch:
+            inputs = tuple(a[sl] for a in inputs)
+        if draws is None:
+            draws = {name: make_draws(self.generator.cfg, B, generator,
+                                      self.device)
+                     for name in ("human", "object")}
+        local = {name: {k: v[sl] if k == "init_u" else v[:, sl]
+                        for k, v in d.items()}
+                 for name, d in draws.items()}
+        return inputs + (local,)
+
     @torch.no_grad()
     def fit_batch(self, images, crop_center, mocap_poses, mocap_betas,
                   kpts2d, generator=None, use_silhouette=True,
-                  block_per_stage=False, draws=None, monitor=None):
+                  block_per_stage=False, draws=None, monitor=None,
+                  local_batch=False):
         """Full per-batch reconstruction.
 
         Args:
@@ -367,18 +437,30 @@ class ReconFitter:
             (object).
           block_per_stage: synchronize the card after each stage, so
             ``timer.summary()`` holds true per-stage wall times.
-          draws: optional injected point-generation draws (tests).
+          draws: optional injected point-generation draws (tests), of the
+            global batch under a mesh.
+          local_batch: under a mesh, the inputs already hold only this
+            rank's slice of the global batch (each rank prepared its own
+            frames); otherwise they hold the global batch and each rank
+            keeps its slice.
           monitor: optional utils.viewer.FitMonitor; snapshots frame 0's
             point clouds after generation, its SMPL mesh after the SMPL
             chain, SMPL and object after the object chain (rendered on the
             fitter's device).
 
         Returns dict with smpl params, object params, obj_R, the generated
-        point clouds, the scale init, and the iterations run per phase.
+        point clouds, the scale init, and the iterations run per phase;
+        under a mesh, of this rank's frames (``parallel.all_gather_batch``
+        joins the ranks' results).
         """
         dev = self.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
+        if self.mesh is not None:
+            (images, crop_center, mocap_poses, mocap_betas, kpts2d,
+             draws) = self._local_inputs(
+                (images, crop_center, mocap_poses, mocap_betas, kpts2d),
+                generator, draws, local_batch)
 
         def sync():
             if block_per_stage and dev.type == "cuda":

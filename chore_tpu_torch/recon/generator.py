@@ -37,6 +37,21 @@ BOX_LO = (-3.0, -2.5, 1.95)
 BOX_HI = (3.0, 2.5, 2.45)
 
 
+def box_samples(u):
+    """Unit draws u (..., 3) in [0, 1) -> points in the scene box
+    x [-3, 3], y [-2.5, 2.5], z [1.95, 2.45] around the fixed SMPL depth."""
+    lo = torch.tensor(BOX_LO, device=u.device)
+    hi = torch.tensor(BOX_HI, device=u.device)
+    return lo + u * (hi - lo)
+
+
+def init_box_samples(generator, batch_size, n):
+    """(batch_size, n, 3) uniform samples in the scene box, drawn from
+    ``generator`` (on its device); ``chore_tpu``'s takes a PRNG key."""
+    return box_samples(torch.rand((batch_size, n, 3), generator=generator,
+                                  device=generator.device))
+
+
 def make_draws(cfg: SamplerConfig, batch_size, generator, device):
     """All random numbers one ``sample`` call consumes:
     init_u (B, S, 3) ~ U[0, 1) for the scene box, and per round
@@ -74,9 +89,7 @@ def make_surface_sampler(query_fn, cfg: SamplerConfig = SamplerConfig()):
         dev = draws["init_u"].device if draws is not None else generator.device
         if draws is None:
             draws = make_draws(cfg, batch_size, generator, dev)
-        lo = torch.tensor(BOX_LO, device=dev)
-        hi = torch.tensor(BOX_HI, device=dev)
-        init = lo + draws["init_u"] * (hi - lo)
+        init = box_samples(draws["init_u"])
         live = init
         S = cfg.sample_num
         harvest = []

@@ -12,6 +12,11 @@ launch and hands the results in through ``nn=``:
   * collision: object points behind the tangent plane of their nearest
     SMPL vertex are penalized quadratically (k = 1).
 Loss weights follow w^2 * value / (1 + decay).
+
+Under a data-parallel mesh the fitter divides each term by the rank count,
+which makes a rank's mean over its equal slice its share of the global
+batch's; only the contact term needs more, its pair count summed over the
+ranks (``contact_loss(mesh=)``).
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from chore_tpu_torch.models.layers import one_hot_ce
 from chore_tpu_torch.ops.camera import PerspectiveCamera, Z0
 from chore_tpu_torch.ops.chamfer import nn_sqdist, nn_sqdist_multi
 from chore_tpu_torch.ops.nn import BIG
+from chore_tpu_torch.parallel.mesh import all_sum
 from chore_tpu_torch.smpl.const import SMPL_PARTS_NUM
 
 # w^2 constants
@@ -139,7 +145,8 @@ def contact_nn_calls(smpl_verts, obj_points, df_hum_o, df_obj_h,
 
 
 def contact_loss(smpl_verts, obj_points, df_hum_o, df_obj_h,
-                 part_labels_h, part_labels_o, thresh=0.08, nn=None):
+                 part_labels_h, part_labels_o, thresh=0.08, nn=None,
+                 mesh=None):
     """Per-part contact chamfer.
 
     Args:
@@ -151,6 +158,9 @@ def contact_loss(smpl_verts, obj_points, df_hum_o, df_obj_h,
       nn: optional [(d_h, idx_h), (d_o, idx_o)], ``nn_sqdist_multi`` over
         ``contact_nn_calls`` of the same arguments; computed here (one
         kernel launch for both directions) when None.
+      mesh: optional data-parallel mesh; the pair count is then the global
+        batch's (summed over the ranks before the division), and the value
+        this rank's share of the global batch's.
 
     Points with df < thresh are in contact; a side with no contacts at all
     makes all its points eligible. Each part with points on both sides is a
@@ -178,7 +188,7 @@ def contact_loss(smpl_verts, obj_points, df_hum_o, df_obj_h,
     ly = torch.einsum("bn,bnp->bp", do_ok, om.to(d_o.dtype))
     pair = lx / nx.clamp(min=1) + ly / ny.clamp(min=1)
     pair = torch.where(valid, pair, torch.zeros_like(pair))
-    n_pairs = valid.sum()
+    n_pairs = all_sum(valid.sum(), mesh)
     return torch.where(n_pairs > 0, pair.sum() / n_pairs.clamp(min=1),
                        torch.zeros_like(pair.sum()))
 

@@ -16,6 +16,13 @@ become Python loops, with these semantics kept exactly:
     iteration, with ``prev_loss`` carried in from the previous phase; the
     test is computed in float32 like the JAX package's.
 One ``run_phase`` is one reference optimizer lifetime.
+
+Under a data-parallel ``mesh`` each rank optimizes its own frames' parameters
+and ``loss_fn`` returns its share of the global batch's loss; each step sums
+the shares and the non-finite flags over the ranks (``all_sum`` of the one
+small tensor the step reads back to the host; the identity with one
+process), so the finite skip and the plateau stop act on the global values
+and every rank runs the same steps and collectives.
 """
 from __future__ import annotations
 
@@ -24,6 +31,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from chore_tpu_torch.parallel.mesh import all_sum
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
@@ -54,7 +63,7 @@ class PhaseSpec:
 
 
 def run_phase(loss_fn, params, spec: PhaseSpec, generator=None,
-              prev_loss=300.0, record=False):
+              prev_loss=300.0, record=False, mesh=None):
     """Run one phase.
 
     Args:
@@ -65,6 +74,9 @@ def run_phase(loss_fn, params, spec: PhaseSpec, generator=None,
       generator: torch.Generator handed to ``loss_fn`` (SVD jitter).
       prev_loss: plateau-reference loss entering the phase.
       record: also return the per-step loss trace.
+      mesh: optional ``parallel.Mesh``; ``loss_fn`` then returns this
+        rank's share of the global loss, and the loss and the finite check
+        are the global batch's.
 
     Returns:
       (params, final_loss, n_iters_run), plus, when ``record``, a trace
@@ -106,9 +118,10 @@ def run_phase(loss_fn, params, spec: PhaseSpec, generator=None,
                             gsum[k] = gsum[k] + g
                     finite = torch.stack(
                         [torch.isfinite(gsum[k]).all() for k in names]).all()
-                    loss_v, finite_v = torch.stack(
-                        [loss.detach().float(), finite.float()]).tolist()
-                    if finite_v:
+                    loss_v, bad = all_sum(torch.stack(
+                        [loss.detach().float(), (~finite).float()]),
+                        mesh).tolist()
+                    if bad == 0:
                         count += 1
                         bc1 = np.float32(1) - np.float32(_B1) ** np.float32(count)
                         bc2 = np.float32(1) - np.float32(_B2) ** np.float32(count)

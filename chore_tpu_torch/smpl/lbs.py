@@ -31,6 +31,14 @@ class SMPLModel:
     # per tree level >= 1: (joint indices, their parents) as index tensors
     levels: list
 
+    @property
+    def num_joints(self):
+        return self.j_regressor.shape[0]
+
+    @property
+    def num_verts(self):
+        return self.v_template.shape[0]
+
 
 def _tree_levels(parents, device):
     depth = [0] * len(parents)

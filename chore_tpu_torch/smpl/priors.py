@@ -54,3 +54,8 @@ def mean_hand_pose(assets_dir=None):
     """(90,) GRAB mean hand pose (numpy) used to initialize SMPL-H hands."""
     p = load_priors(assets_dir)
     return np.concatenate([p["lh_mean"], p["rh_mean"]]).astype(np.float32)
+
+
+def mean_body_pose(assets_dir=None):
+    """(63,) mean body pose of the body prior (numpy)."""
+    return np.asarray(load_priors(assets_dir)["body_mean"], np.float32)

@@ -1,8 +1,8 @@
 """Mesh IO and the mesh utilities the fitter needs (numpy), copied from
 ``chore_tpu/utils/meshio.py`` so the port reads and writes the same files
 byte for byte: PLY read (ascii and binary little endian) and ascii write,
-OBJ read/write, seeded area-weighted surface sampling, PCA axes, and the
-octasphere stand-in mesh.
+OBJ read/write, seeded area-weighted surface sampling, PCA axes, the
+octasphere stand-in mesh, and the procedural box and chair meshes.
 """
 from __future__ import annotations
 
@@ -191,3 +191,55 @@ def octasphere(radius=0.2, center=(0, 0, 0), subdiv=2):
         verts = np.asarray(verts)
     verts = verts / np.linalg.norm(verts, axis=1, keepdims=True)
     return (verts * radius + np.asarray(center)).astype(np.float32), faces.astype(np.int32)
+
+
+def box_mesh(size, center=(0, 0, 0), subdiv=0):
+    """Axis-aligned box with outward-facing triangles, each face an
+    (2^subdiv)^2 grid -- procedural test geometry."""
+    sx, sy, sz = (np.asarray(size, np.float64) / 2.0)
+    n = 2 ** subdiv
+    verts, faces = [], []
+    # each face: origin, u-axis, v-axis, with (u x v) pointing outward
+    axes = [
+        ((-sx, -sy, sz), (2 * sx, 0, 0), (0, 2 * sy, 0)),   # +z
+        ((sx, -sy, -sz), (-2 * sx, 0, 0), (0, 2 * sy, 0)),  # -z
+        ((sx, -sy, sz), (0, 0, -2 * sz), (0, 2 * sy, 0)),   # +x
+        ((-sx, -sy, -sz), (0, 0, 2 * sz), (0, 2 * sy, 0)),  # -x
+        ((-sx, sy, sz), (2 * sx, 0, 0), (0, 0, -2 * sz)),   # +y
+        ((-sx, -sy, -sz), (2 * sx, 0, 0), (0, 0, 2 * sz)),  # -y
+    ]
+    for origin, u, v in axes:
+        base = len(verts)
+        o, u, v = (np.asarray(a, np.float64) for a in (origin, u, v))
+        for i in range(n + 1):
+            for j in range(n + 1):
+                verts.append(o + u * (i / n) + v * (j / n))
+        for i in range(n):
+            for j in range(n):
+                a = base + i * (n + 1) + j
+                b, c, d = a + 1, a + (n + 1), a + (n + 1) + 1
+                faces += [[a, c, b], [b, c, d]]
+    verts = np.asarray(verts, np.float64) + np.asarray(center, np.float64)
+    return verts.astype(np.float32), np.asarray(faces, np.int32)
+
+
+def chair_mesh(subdiv=2):
+    """Procedural chair (seat, backrest, 4 legs), centred: a concave
+    multi-part template for silhouette-fitting studies. subdiv=2 -> 1,152
+    faces, subdiv=3 -> 4,608."""
+    parts = [
+        box_mesh((0.45, 0.05, 0.45), (0, 0.0, 0), subdiv),        # seat
+        box_mesh((0.45, 0.50, 0.05), (0, 0.27, -0.20), subdiv),   # back
+        box_mesh((0.05, 0.45, 0.05), (-0.18, -0.25, -0.18), subdiv),
+        box_mesh((0.05, 0.45, 0.05), (0.18, -0.25, -0.18), subdiv),
+        box_mesh((0.05, 0.45, 0.05), (-0.18, -0.25, 0.18), subdiv),
+        box_mesh((0.05, 0.45, 0.05), (0.18, -0.25, 0.18), subdiv),
+    ]
+    verts = np.concatenate([v for v, _ in parts])
+    off, faces = 0, []
+    for v, f in parts:
+        faces.append(f + off)
+        off += len(v)
+    faces = np.concatenate(faces)
+    verts = verts - verts.mean(0)
+    return verts.astype(np.float32), faces.astype(np.int32)

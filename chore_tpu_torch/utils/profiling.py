@@ -1,8 +1,9 @@
-"""Tracing and per-phase wall-clock timing (``trace`` and ``StepTimer``
-of ``chore_tpu/utils/profiling.py``)."""
+"""Tracing, named regions, matmul/conv FLOP counts and per-phase
+wall-clock timing (counterpart of ``chore_tpu/utils/profiling.py``)."""
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import threading
 import time
@@ -33,6 +34,27 @@ def trace(logdir, enabled=True):
     with open(os.path.join(logdir, "ops.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
                                           row_limit=60))
+
+
+def annotate(name):
+    """A named region on the ``torch.profiler`` timeline (and an NVTX range
+    on the card's trace): ``with annotate("encode"): ...``."""
+    import torch
+
+    return torch.profiler.record_function(name)
+
+
+def flops_estimate(fn, *args, **kwargs):
+    """FLOPs of the matmuls and convolutions that ``fn(*args, **kwargs)``
+    runs, 2 per multiply-accumulate (``torch.utils.flop_counter``), the
+    convention MFU figures use; elementwise and reduction work is left
+    out. Unlike ``chore_tpu``'s, which traces the function, this runs it
+    once (give it small inputs, or tensors on the meta device)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn(*args, **kwargs)
+    return float(counter.get_total_flops())
 
 
 class StepTimer:
@@ -74,3 +96,11 @@ class StepTimer:
                 "max_ms": round(1e3 * max(ts), 3),
             }
         return out
+
+    def report(self, path=None):
+        """``summary()``, also written to ``path`` as JSON when given."""
+        s = self.summary()
+        if path:
+            with open(path, "w") as f:
+                json.dump(s, f, indent=2)
+        return s

@@ -2,7 +2,8 @@
 one-frame sequence (the committed example) writes the same file set and
 the same pickle keys (and shapes) with the same checkpoint; a second run
 skips the frame; the flags the port does not carry fail with their
-reason (``--debug-viz`` is ported: ``test_torch_port_viewer_demo.py``)."""
+reason (``--debug-viz`` is ported: ``test_torch_port_viewer_demo.py``;
+``--data-parallel`` too: ``test_torch_port_recon_parallel.py``)."""
 import os
 import pickle
 
@@ -76,7 +77,7 @@ def test_second_run_skips(runs, capsys, monkeypatch):
     before = os.stat(ply).st_mtime_ns
     prepared = []
     monkeypatch.setattr(TestImagePrep, "prepare",
-                        lambda self, f: prepared.append(f))
+                        lambda self, f, **kw: prepared.append(f))
     fitter = recon_fit(ChoreConfig(**SMALL_CFG), EXAMPLE_SEQ, "fit", out_t,
                        **kw)
     assert "already done, skipped" in capsys.readouterr().out
@@ -87,7 +88,6 @@ def test_second_run_skips(runs, capsys, monkeypatch):
 
 @pytest.mark.parametrize("flag,why", [
     (["--fused"], "not ported by design"),
-    (["--data-parallel"], "DDP"),
 ])
 def test_flags_not_ported_fail(flag, why, capsys):
     from chore_tpu_torch.cli.recon import main
@@ -96,3 +96,18 @@ def test_flags_not_ported_fail(flag, why, capsys):
         main(["-s", EXAMPLE_SEQ, "-sn", "x", *flag])
     assert e.value.code == 2
     assert why in capsys.readouterr().err
+
+
+def test_data_parallel_flag_reaches_recon_fit(monkeypatch):
+    """``--data-parallel`` is ported: it parses and reaches ``recon_fit``
+    with the batch size and device as given (the fits themselves:
+    ``test_torch_port_recon_parallel.py``)."""
+    import chore_tpu_torch.cli.recon as crecon
+
+    seen = {}
+    monkeypatch.setattr(crecon, "recon_fit",
+                        lambda *a, **kw: seen.update(kw))
+    crecon.main(["-s", EXAMPLE_SEQ, "-sn", "x", "--data-parallel", "-bs",
+                 "3", "--device", "cpu"])
+    assert seen["data_parallel"] is True and seen["batch_size"] == 3
+    assert seen["device"] == "cpu"

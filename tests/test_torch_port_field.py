@@ -1,6 +1,9 @@
 """The field network against ``chore_tpu``: a 2-stack CHOREField at 64^2
 with the same weights (``params_from_jax``), forward on every head of every
-stack, the point gradient of the frozen query, and the last-stack query.
+stack, the point gradient of the frozen query, and the last-stack query;
+``HGFilter(grouped_heads=True)`` (the HGFilterGConv variant) on the same
+weights; the profiling helpers (matmul/conv FLOP count, named regions,
+``StepTimer.report``).
 Tolerances: 1e-4 absolute on heads of magnitude ~0.05-5 (two hourglass
 stacks of f32 convs summed in other orders)."""
 import jax
@@ -88,6 +91,104 @@ def test_integer_images_scaled(fields):
     a, _ = tm.encode(torch.from_numpy(u8), train=False)
     b, _ = tm.encode(t(u8.astype(np.float32) / 255.0), train=False)
     assert torch.equal(a[0], b[0])
+
+
+@pytest.mark.parametrize("num_stack", [1, 2])
+def test_grouped_heads_hgfilter(num_stack):
+    """``HGFilter(grouped_heads=True)``: per-stack heads and re-injection
+    convs grouped one channel each, weights through ``params_from_jax``
+    (strict load: grouped kernels (1, 1, I/G, O) become (O, I/G, 1, 1));
+    every stack's output and normx within 1e-5 of the largest (f32 convs
+    summed in other orders)."""
+    from chore_tpu.models.hourglass import HGFilter as JH
+    from chore_tpu_torch.models.convert import params_from_jax
+    from chore_tpu_torch.models.hourglass import HGFilter as TH
+
+    kw = dict(num_stack=num_stack, depth=1, features=16, out_dim=32,
+              grouped_heads=True)
+    jm = JH(**kw)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 32, 32, 5)))
+    rng = np.random.RandomState(1)
+    params = jax.tree_util.tree_map(
+        lambda sd: jnp.asarray(0.1 * rng.randn(*sd.shape), jnp.float32),
+        shapes)
+    assert params["params"]["l0"]["kernel"].shape == (1, 1, 1, 32)
+    x = np.random.RandomState(0).rand(1, 32, 32, 5).astype(np.float32)
+    outs_j, _, normx_j = jm.apply(params, jnp.asarray(x), train=True)
+    tm = TH(**kw)
+    tm.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                              params)))
+    assert tm.l0.groups == 16
+    with torch.no_grad():
+        outs_t, _, normx_t = tm(t(x).permute(0, 3, 1, 2), train=True)
+    assert len(outs_t) == len(outs_j) == num_stack
+    for a, b in zip(outs_j + [normx_j], outs_t + [normx_t]):
+        a = np.asarray(a)
+        np.testing.assert_allclose(n(b.permute(0, 2, 3, 1)), a, rtol=0,
+                                   atol=1e-5 * np.abs(a).max())
+    with pytest.raises(ValueError, match="out_dim"):
+        TH(features=16, out_dim=24, grouped_heads=True)
+
+
+def test_flops_estimate_equals_the_reference(fields):
+    """2 FLOPs per multiply-accumulate of the matmuls and convolutions of
+    one field forward (encode + query of 8 points), 1 stack at 64^2:
+    exactly ``chore_tpu``'s jaxpr count for the port's mixed-precision
+    field, whose bicubic upsampling is its two matmuls as in the JAX
+    package; the float32 field upsamples through ``F.interpolate`` (no
+    matmul), and counts exactly those matmuls' FLOPs less."""
+    from chore_tpu.models import CHOREField, FieldConfig
+    from chore_tpu.utils.profiling import flops_estimate as jflops
+    from chore_tpu_torch.models.chore import FieldConfig as TFC
+    from chore_tpu_torch.models.chore import build_field
+    from chore_tpu_torch.models.convert import params_from_jax
+    from chore_tpu_torch.utils.profiling import flops_estimate as tflops
+
+    _, params = jax_field(num_stack=1)
+    img, pts, cc = np.zeros((1, 64, 64, 5), np.float32), np.zeros(
+        (1, 8, 3), np.float32), np.zeros((1, 2), np.float32)
+    jm = CHOREField(cfg=FieldConfig(num_stack=1))
+    want = jflops(lambda p: jm.apply(p, img, pts, cc, train=False), params)
+    sd = params_from_jax(jax.tree_util.tree_map(np.asarray, params))
+    got = {}
+    for dt in (torch.bfloat16, torch.float32):
+        tm = build_field(TFC(num_stack=1), device="cpu", state_dict=sd,
+                         encoder_dtype=dt)
+
+        def forward():
+            feats, tmpx = tm.encode(t(img), train=False)
+            return tm.query_last(feats, tmpx, t(pts), t(cc))
+
+        got[dt] = tflops(forward)
+    assert got[torch.bfloat16] == want > 1e9
+    # the hourglass (depth 2, at 16^2) upsamples 256 channels 4->8 and
+    # 8->16: rows, then columns, 2 FLOPs per tap of the (2n, n) matrices
+    ups = sum(2 * 256 * (2 * n_) * n_ * n_ + 2 * 256 * (2 * n_) * (2 * n_)
+              * n_ for n_ in (4, 8))
+    assert got[torch.float32] == want - ups
+
+
+def test_annotate_and_step_timer_report(tmp_path):
+    """A named region shows on the profiler's timeline; the timer's report
+    is its summary, written as JSON when a path is given."""
+    import json
+
+    from torch.profiler import profile
+
+    from chore_tpu_torch.utils.profiling import StepTimer, annotate
+
+    with profile() as prof:
+        with annotate("port_region"):
+            torch.ones(4).sum()
+    assert "port_region" in {e.key for e in prof.key_averages()}
+    timer = StepTimer()
+    with timer.phase("a"):
+        pass
+    path = tmp_path / "timer.json"
+    rep = timer.report(str(path))
+    assert rep == timer.summary() == json.loads(path.read_text())
+    assert rep["a"]["count"] == 1 and timer.report() == rep
 
 
 def test_build_field_needs_a_device_or_cpu(monkeypatch):

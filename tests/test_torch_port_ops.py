@@ -1,5 +1,6 @@
-"""Port ops against ``chore_tpu``: camera, rotation, grid sampling, the
-encoder's layers and the weight converter, forward values and gradients.
+"""Port ops against ``chore_tpu``: cameras, rotation, grid sampling, the
+encoder's layers and the weight converter, the masked Chamfer, the
+procedural meshes, forward values and gradients.
 Inputs come from numpy seeds; both sides run float32 on the CPU, so the
 tolerances are f32 accumulation-order noise, stated per test."""
 import jax
@@ -48,6 +49,72 @@ class TestCamera:
         for a, b in zip(JC().project_screen(jnp.asarray(pts)),
                         TC().project_screen(t(pts))):
             np.testing.assert_allclose(n(b), np.asarray(a), rtol=1e-5)
+
+
+    def test_orthographic_camera(self):
+        """The unused orthographic stand-in: the identity on the points,
+        the same fields and defaults as ``chore_tpu``'s."""
+        from chore_tpu.ops.camera import OrthographicCamera as JC
+        from chore_tpu_torch.ops.camera import OrthographicCamera as TC
+
+        pts = np.random.RandomState(1).randn(2, 7, 3).astype(np.float32)
+        jc, tc = JC(), TC(load_size=256)
+        assert (tc.load_size, tc.scale) == (256, jc.scale)
+        np.testing.assert_array_equal(n(tc.project_points(t(pts), t(pts[:, 0,
+                                                                    :2]))),
+                                      np.asarray(jc.project_points(pts)))
+
+
+class TestMaskedChamfer:
+    @pytest.mark.parametrize("case", ["both", "x_empty", "y_empty"])
+    def test_values_and_grads(self, case):
+        """Masked squared Chamfer of one pair: 1e-5 relative on the value,
+        1e-4 of the largest on the gradients (the port re-expresses each
+        distance as |x - y[idx]|^2 where the JAX package keeps the
+        expansion); 0 with zero gradients when a side has no valid point."""
+        from chore_tpu.ops.chamfer import masked_chamfer_sq as jm
+        from chore_tpu_torch.ops.chamfer import masked_chamfer_sq as tm
+
+        rng = np.random.RandomState(2)
+        x = rng.randn(40, 3).astype(np.float32)
+        y = (rng.randn(55, 3) * 0.7 + 0.3).astype(np.float32)
+        xm, ym = rng.rand(40) < 0.6, rng.rand(55) < 0.5
+        if case == "x_empty":
+            xm[:] = False
+        elif case == "y_empty":
+            ym[:] = False
+        want, gj = jax.value_and_grad(jm, argnums=(0, 1))(
+            jnp.asarray(x), jnp.asarray(y), jnp.asarray(xm), jnp.asarray(ym))
+        xt, yt = t(x).requires_grad_(True), t(y).requires_grad_(True)
+        got = tm(xt, yt, torch.from_numpy(xm), torch.from_numpy(ym))
+        got.backward()
+        if case == "both":
+            assert float(want) > 0
+        else:
+            assert float(got) == float(want) == 0.0
+        np.testing.assert_allclose(float(got.detach()), float(want),
+                                   rtol=1e-5)
+        for g, w in zip((xt.grad, yt.grad), gj):
+            w = np.asarray(w)
+            np.testing.assert_allclose(n(g), w, rtol=0,
+                                       atol=1e-4 * max(np.abs(w).max(), 1e-3))
+
+
+class TestMeshio:
+    @pytest.mark.parametrize("subdiv", [0, 1, 2])
+    def test_box_and_chair_bitwise(self, subdiv):
+        from chore_tpu.utils import meshio as jm
+        from chore_tpu_torch.utils import meshio as tm
+
+        for got, want in ((tm.box_mesh((0.3, 0.2, 0.5), (0.1, -0.2, 2.0),
+                                       subdiv),
+                           jm.box_mesh((0.3, 0.2, 0.5), (0.1, -0.2, 2.0),
+                                       subdiv)),
+                          (tm.chair_mesh(subdiv), jm.chair_mesh(subdiv))):
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+        assert len(tm.chair_mesh(2)[1]) == 1152
 
 
 class TestRotation:

@@ -1,8 +1,9 @@
 """Package-level contracts of ``chore_tpu_torch``: it imports neither JAX,
-the JAX package, cv2, PIL, PyYAML nor msgpack, its assets are byte copies
-of ``chore_tpu``'s, its entry points refuse to drop silently to the CPU,
-and ``fit_batch`` at its defaults runs the silhouette phase, neutralized on
-a frame with no object mask."""
+the JAX package, cv2, PIL, PyYAML nor msgpack, its sub-packages export
+``chore_tpu``'s names, its assets are byte copies of ``chore_tpu``'s, its
+entry points refuse to drop silently to the CPU, and ``fit_batch`` at its
+defaults runs the silhouette phase, neutralized on a frame with no object
+mask."""
 import filecmp
 import os
 import subprocess
@@ -39,7 +40,10 @@ def test_imports_no_jax_or_reference():
             "chore_tpu_torch.train.trainer", "chore_tpu_torch.train.optim",
             "chore_tpu_torch.train.torch_import",
             "chore_tpu_torch.parallel.mesh",
-            "chore_tpu_torch.data.train_data"} <= set(mods)
+            "chore_tpu_torch.data.train_data", "chore_tpu_torch.ops",
+            "chore_tpu_torch.recon", "chore_tpu_torch.models",
+            "chore_tpu_torch.parallel", "chore_tpu_torch.utils.profiling",
+            "chore_tpu_torch.behave.readers"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
@@ -52,6 +56,19 @@ def test_imports_no_jax_or_reference():
                          text=True, cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("sub", ["ops", "recon", "models"])
+def test_exports_match_the_reference(sub):
+    """Each sub-package exports every name of ``chore_tpu``'s ``__all__``
+    (and may export more), each one defined."""
+    import importlib
+
+    want = importlib.import_module(f"chore_tpu.{sub}").__all__
+    port = importlib.import_module(f"chore_tpu_torch.{sub}")
+    assert set(want) <= set(port.__all__), set(want) - set(port.__all__)
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
 
 
 @pytest.mark.parametrize("name", ["landmark_regressors.npz", "priors.npz",

@@ -2,8 +2,9 @@
 or PIL) against ``chore_tpu``'s on the synthetic sequence of
 ``tests/test_readers.py``: frame discovery, masks, colour and depth images,
 GT fits, mocap, keypoints, calibration and ``KinectTransform`` equal;
-``project_points`` against ``cv2.projectPoints`` within 1e-9 with every
-distortion model; the 16-bit depth reader bitwise against
+``project_points`` against ``cv2.projectPoints`` within 1e-9 and
+``undistort_image`` bitwise against ``cv2.undistort`` with every distortion
+model; the 16-bit depth reader bitwise against
 ``cv2.IMREAD_ANYDEPTH``; ``get_seq_bkg`` and ``remove_background``."""
 import numpy as np
 import pytest
@@ -102,8 +103,7 @@ def test_kinect_transform_and_calib(seq):  # noqa: F811
     holes = np.full((8, 8), 2.0)
     holes[3, 3] = holes[5, 6] = 0.0
     _equal(cj.interpolate_depth(holes), ct.interpolate_depth(holes))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ct.undistort(img)
+    _equal(cj.undistort(img), ct.undistort(img))
 
 
 @pytest.mark.parametrize("n", [0, 4, 5, 8, 12, 14])
@@ -120,6 +120,32 @@ def test_project_points_against_opencv(n):
                              dist if n else None)[0].reshape(-1, 2)
     np.testing.assert_allclose(project_points(pts, cam, dist), want,
                                atol=1e-9, rtol=0)
+
+
+@pytest.mark.parametrize("n", [4, 5, 8, 12, 14])
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_undistort_against_opencv(n, dtype):
+    """``cv2.undistort`` of a smooth 2,048 x 1,536 colour image with a
+    Kinect-like camera and each distortion model: bitwise equal (the maps
+    in OpenCV's 1/32 pixel, the 8-bit sums in its 15-bit fixed point). A
+    source position within float64 noise of a 1/64-pixel boundary could
+    round the other way and move its pixel by one 1/32 step; none did."""
+    import cv2
+
+    from chore_tpu_torch.behave.readers import undistort_image
+
+    K = np.array([[979.78, 0, 1018.95], [0, 979.84, 779.49], [0, 0, 1.0]])
+    dist = np.array([0.5, -2.6, 7e-4, -3e-4, 1.5, 0.38, -2.4, 1.4, 1e-3,
+                     -5e-4, 8e-4, -2e-4, 0.01, -0.02])[:n]
+    rng = np.random.RandomState(n)
+    img = cv2.GaussianBlur((rng.rand(1536, 2048, 3) * 255).astype(np.uint8),
+                           (0, 0), 3)
+    if dtype == "float32":
+        img = img.astype(np.float32) / 255
+    got = undistort_image(img, K, dist)
+    want = cv2.undistort(img, K, dist)
+    assert got.dtype == want.dtype and (want == 0).any()
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("kind", ["gray16", "rgb16", "gray8", "rgb8",

@@ -98,6 +98,18 @@ def test_priors(params):
                                np.asarray(jh()(pose)), rtol=1e-5)
 
 
+def test_mean_body_pose_and_model_sizes(models):
+    from chore_tpu.smpl.priors import mean_body_pose as jm
+    from chore_tpu_torch.smpl.priors import mean_body_pose as tm
+
+    got, want = tm(), np.asarray(jm())
+    assert got.shape == (63,) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    js, ts = models
+    assert (ts.model.num_joints, ts.model.num_verts) == (
+        js.model.num_joints, js.model.num_verts)
+
+
 def test_smplh_device_default(monkeypatch):
     from chore_tpu_torch.smpl import SMPLH, synthetic_smplh
 

@@ -70,13 +70,15 @@ def jax_fit_draws(key, batch_size, cfg):
             "object": jax_sampler_draws(ko, batch_size, cfg)}
 
 
-def run_both_fits(fit_kw, samp_kw, frame, use_silhouette):
+def run_both_fits(fit_kw, samp_kw, frame, use_silhouette, edit_params=None):
     """``fit_batch`` of ``chore_tpu`` and of the port (CPU, traces
     recorded) on the same frame, weights, SMPL-H arrays and point-generation
     draws. Both add the same fixed 1e-3 matrix before every SO(3)
     projection: with ``svd_jitter=False`` an exact rotation makes the SVD
     backward 0/0 and every object step is skipped as non-finite; the fixed
-    matrix is the deterministic stand-in for the production jitter."""
+    matrix is the deterministic stand-in for the production jitter.
+    ``edit_params``: optional function of the field's flax params that
+    returns the params both fits use."""
     import chore_tpu.recon.fitter as jfit
     import chore_tpu_torch.recon.fitter as tfit
     from chore_tpu.recon.generator import SamplerConfig as JSamp
@@ -87,6 +89,8 @@ def run_both_fits(fit_kw, samp_kw, frame, use_silhouette):
     from chore_tpu_torch.smpl import SMPLH as TSMPLH
 
     model, params = jax_field()
+    if edit_params is not None:
+        params = edit_params(params)
     arrays = synthetic_smplh()
     tv, tf = octasphere(radius=0.18, subdiv=1)
     key = jax.random.PRNGKey(0)
@@ -101,7 +105,8 @@ def run_both_fits(fit_kw, samp_kw, frame, use_silhouette):
                               sampler_cfg=TSamp(**samp_kw), record_traces=True,
                               device="cpu")
         out_t = ft.fit_batch(*frame, use_silhouette=use_silhouette,
-                             draws=jax_fit_draws(key, 1, JSamp(**samp_kw)))
+                             draws=jax_fit_draws(key, len(frame[0]),
+                                                 JSamp(**samp_kw)))
     return out_j, out_t
 
 
@@ -152,30 +157,41 @@ def assert_traces_match(traces_j, traces_t, names, moved=False):
         assert np.ptp(lj[vj]) > 0
 
 
-def sil_fit_case(options=None):
-    """Both packages' ``fit_batch(use_silhouette=True)`` at a cut budget
-    (2 'sil' iterations of 3 steps, 64^2 render) on a 64^2 frame whose
-    channel 3 is a person box and channel 4 an object disk, so the ROI is a
-    real crop; ``options`` are extra FitConfig fields."""
-    S = 64
-    fit = dict(iter_betas=1, iter_pose=1, iter_kpts=1, iter_kpts_max=2,
+SIL_FIT = dict(iter_betas=1, iter_pose=1, iter_kpts=1, iter_kpts_max=2,
                iter_obj=2, iter_sil=2, iter_joint=1, iter_joint_max=4,
-               steps_per_iter=3, obj_samples=128, net_in_size=S,
-               sil_rend_size=64, svd_jitter=False, **(options or {}))
-    samp = dict(num_steps=2, sample_num=256, num_rounds=2, num_points=128)
-    rng = np.random.RandomState(0)
+               steps_per_iter=3, obj_samples=128, net_in_size=64,
+               sil_rend_size=64, svd_jitter=False)
+SIL_SAMP = dict(num_steps=2, sample_num=256, num_rounds=2, num_points=128)
+
+
+def sil_frame(seed=0, person=(30, 36, 12, 20), disk=(36.4, 31.2, 11.3),
+              crop_center=(1018.0, 779.0), S=64):
+    """A 64^2 frame (batch of one) whose channel 3 is a person box (centre
+    x, y, half-width, half-height) and channel 4 an object disk (centre x,
+    y, radius), so the silhouette ROI is a real crop; the rest seeded
+    noise."""
+    rng = np.random.RandomState(seed)
     images = rng.rand(1, S, S, 5).astype(np.float32)
     yy, xx = np.mgrid[:S, :S]
-    images[0, ..., 3] = (np.abs(xx - 30) < 12) & (np.abs(yy - 36) < 20)
-    images[0, ..., 4] = (xx - 36.4) ** 2 + (yy - 31.2) ** 2 < 11.3 ** 2
-    cc = np.array([[1018.0, 779.0]], np.float32)
+    px, py, hw, hh = person
+    images[0, ..., 3] = (np.abs(xx - px) < hw) & (np.abs(yy - py) < hh)
+    dx, dy, r = disk
+    images[0, ..., 4] = (xx - dx) ** 2 + (yy - dy) ** 2 < r ** 2
+    cc = np.array([crop_center], np.float32)
     pose = (rng.randn(1, 72) * 0.05).astype(np.float32)
     betas = (0.1 * rng.randn(1, 10)).astype(np.float32)
     kpts = np.concatenate(
         [(S * rng.rand(1, 25, 2)).astype(np.float32),
          (0.3 + 0.7 * rng.rand(1, 25, 1)).astype(np.float32)], -1)
-    return run_both_fits(fit, samp, (images, cc, pose, betas, kpts),
-                         use_silhouette=True)
+    return images, cc, pose, betas, kpts
+
+
+def sil_fit_case(options=None):
+    """Both packages' ``fit_batch(use_silhouette=True)`` at a cut budget
+    (2 'sil' iterations of 3 steps, 64^2 render) on ``sil_frame()``;
+    ``options`` are extra FitConfig fields."""
+    return run_both_fits(dict(SIL_FIT, **(options or {})), SIL_SAMP,
+                         sil_frame(), use_silhouette=True)
 
 
 def assert_final_params_match(out_j, out_t):
@@ -241,6 +257,32 @@ def test_draws_replay_the_jax_sampler():
     lo, hi = torch.tensor(BOX_LO), torch.tensor(BOX_HI)
     np.testing.assert_allclose(n(lo + d["init_u"] * (hi - lo)),
                                np.asarray(want), atol=1e-6)
+
+
+def test_init_box_samples():
+    """The public scene-box sampler: ``chore_tpu``'s box mapping of the same
+    unit draws (1e-6), and the port's draws from a seeded generator lie in
+    the box, (batch, n, 3)."""
+    from chore_tpu.recon.generator import init_box_samples as jinit
+    from chore_tpu_torch.recon.generator import (
+        BOX_HI,
+        BOX_LO,
+        box_samples,
+        init_box_samples,
+    )
+
+    key = jax.random.PRNGKey(3)
+    u = jax.random.uniform(key, (2, 50, 3))
+    np.testing.assert_allclose(n(box_samples(t(u))),
+                               np.asarray(jinit(key, 2, 50)), atol=1e-6)
+    g = torch.Generator().manual_seed(0)
+    got = init_box_samples(g, 3, 40)
+    want = box_samples(torch.rand((3, 40, 3),
+                                  generator=torch.Generator().manual_seed(0)))
+    assert got.shape == (3, 40, 3)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (got >= torch.tensor(BOX_LO)).all()
+    assert (got <= torch.tensor(BOX_HI)).all()
 
 
 # --------------------------------------------------------------------- #
