@@ -96,11 +96,16 @@ def masks2bbox(masks, thres=127):
     comb = np.zeros_like(masks[0], dtype=np.int32)
     for m in masks:
         comb += m
-    ys, xs = np.nonzero(np.clip(comb, 0, 255) > thres)
-    if xs.size == 0:
+    fg = np.clip(comb, 0, 255, out=comb) > thres
+    # the rows, then the columns of those rows, that hold a pixel: two
+    # reductions instead of every pixel's coordinates (a 2,048 x 1,536
+    # mask is decoded for every training item)
+    rows = np.flatnonzero(fg.any(axis=1))
+    if rows.size == 0:
         return np.array([50000, 50000]), np.array([-100, -100])
-    return (np.array([xs.min(), ys.min()]),
-            np.array([xs.max() + 1, ys.max() + 1]))
+    cols = np.flatnonzero(fg[rows[0]:rows[-1] + 1].any(axis=0))
+    return (np.array([cols[0], rows[0]]),
+            np.array([cols[-1] + 1, rows[-1] + 1]))
 
 
 def crop(img, center, crop_size):

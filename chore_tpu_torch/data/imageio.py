@@ -1214,10 +1214,14 @@ def _jpeg_file(H, W, qs, sampling, data):
 
 
 def encode_png(img):
-    """A PNG of a gray (H, W) or BGR (H, W, 3) image, uint8 or uint16 (8- or
-    16-bit samples, as ``cv2.imwrite`` writes a depth map; written as gray or
-    RGB, the channel order swapped back as cv2.imwrite does), every row
-    filter type 0, zlib level 6."""
+    """What ``cv2.imencode('.png', img)`` writes for a gray (H, W) or BGR
+    (H, W, 3) image, uint8 or uint16 (8- or 16-bit samples, as
+    ``cv2.imwrite`` writes a depth map; written as gray or RGB, the channel
+    order swapped back as cv2.imwrite does). OpenCV's defaults on libpng:
+    every row filter SUB (NONE for a one-pixel-wide image), zlib level 1
+    with the RLE strategy, libpng's window bits for a small image and its
+    rewrite of the stream's CMF byte to the least window that holds the
+    data, IDAT chunks of 8,192 bytes."""
     img = _check_u8(img, (1, 3), (np.uint8, np.uint16))
     H, W = img.shape[:2]
     depth = 16 if img.dtype == np.uint16 else 8
@@ -1227,8 +1231,14 @@ def encode_png(img):
         ctype, rows = 2, img[..., ::-1].reshape(H, -1)
     rows = np.ascontiguousarray(rows).astype(">u2" if depth == 16 else
                                              np.uint8).view(np.uint8)
-    raw = np.concatenate([np.zeros((H, 1), np.uint8), rows.reshape(H, -1)],
-                         1)
+    rows = rows.reshape(H, -1)
+    bpp = depth // 8 * (1 if img.ndim == 2 else 3)
+    ftype = 1 if W > 1 else 0
+    if ftype:
+        rows = np.concatenate([rows[:, :bpp],
+                               rows[:, bpp:] - rows[:, :-bpp]], 1)  # mod 256
+    raw = np.concatenate([np.full((H, 1), ftype, np.uint8), rows], 1)
+    data = bytearray(_png_deflate(raw.tobytes()))
 
     def chunk(kind, body):
         return (struct.pack(">I", len(body)) + kind + body
@@ -1237,5 +1247,35 @@ def encode_png(img):
     return (PNG_MAGIC
             + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, ctype, 0,
                                          0, 0))
-            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + b"".join(chunk(b"IDAT", bytes(data[i:i + 8192]))
+                       for i in range(0, len(data), 8192))
             + chunk(b"IEND", b""))
+
+
+def _png_deflate(raw):
+    """libpng's zlib stream of the filtered rows at OpenCV's settings: for
+    at most 16,384 bytes the window shrinks while the data plus 262 fits in
+    half of it (``png_deflate_claim``), and the header then names the least
+    window of at least the data's size (``optimize_cmf``)."""
+    size, wbits = len(raw), 15
+    if size <= 16384:
+        half = 1 << (wbits - 1)
+        while size + 262 <= half:
+            half >>= 1
+            wbits -= 1
+    comp = zlib.compressobj(1, zlib.DEFLATED, max(wbits, 9), 8, zlib.Z_RLE)
+    data = bytearray(comp.compress(raw) + comp.flush())
+    if size <= 16384:
+        cinfo = data[0] >> 4
+        half = 1 << (cinfo + 7)
+        if size <= half:
+            while True:
+                half >>= 1
+                cinfo -= 1
+                if not (cinfo > 0 and size <= half):
+                    break
+            cmf = (data[0] & 0x0F) | (cinfo << 4)
+            flg = data[1] & 0xE0
+            data[0] = cmf
+            data[1] = flg + 0x1F - ((cmf << 8) + flg) % 0x1F
+    return bytes(data)

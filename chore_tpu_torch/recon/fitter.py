@@ -426,7 +426,8 @@ class ReconFitter:
         """Full per-batch reconstruction.
 
         Args:
-          images: (B, S, S, 5) net input (channels-last RGBM3).
+          images: (B, S, S, 5) net input (channels-last RGBM3): float in
+            [0, 1], or uint8 (``BehaveTrainData``'s items) scaled by 1/255.
           crop_center: (B, 2).
           mocap_poses: (B, 72) SMPL pose init; mocap_betas: (B, 10).
           kpts2d: (B, 25, 3) openpose keypoints in net-input pixels + conf.
@@ -470,6 +471,13 @@ class ReconFitter:
             np.asarray(a, np.float32) if not torch.is_tensor(a) else a,
             dtype=torch.float32, device=dev)
 
+        def net_input(a):
+            """Float images as float32; integer images keep their dtype,
+            the field scales them by 1/255 (a float32 cast would feed it
+            0..255)."""
+            a = torch.as_tensor(a, device=dev)
+            return a.float() if torch.is_floating_point(a) else a
+
         def host(a):
             return (a.detach().cpu().numpy() if torch.is_tensor(a)
                     else np.asarray(a, np.float32))
@@ -479,7 +487,7 @@ class ReconFitter:
         crop_center_np = host(crop_center)
         crop_center = f32(crop_center)
         with self.timer.phase("encode"):
-            feats, tmpx = self.generator.encode(f32(images))
+            feats, tmpx = self.generator.encode(net_input(images))
             sync()
         with self.timer.phase("generate_pclouds"):
             pc = self.generator.generate_from_feats(

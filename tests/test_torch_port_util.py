@@ -698,3 +698,33 @@ def optax_updates_match(name, tmp_path):
         norm = np.sqrt(sum(np.sum(v.astype(np.float64) ** 2)
                            for _, v in pairs))
         assert diff <= 1e-6 * norm, (field, diff / norm)
+
+
+# --------------------------------------------------------------------- #
+# the whole-system tools: the reference's tools/ and its posed body
+def reference_tool(name):
+    """The reference's ``tools/<name>.py`` as a module (imported by path:
+    ``tools/`` is no package)."""
+    import importlib.util
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        f"reference_tools_{name}", os.path.join(repo, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def jax_posed_body(smplh, pose, depth, device=None):
+    """``chore_tpu_torch.tools.make_example.posed_body`` computed by the JAX
+    package, as the reference tools compute the body (float64 verts): the
+    port's SMPL-H puts its float32 vertices a few ulps from XLA's, so
+    byte-equal tool outputs need this body patched in."""
+    from chore_tpu.smpl import SMPLH, synthetic_smplh
+    from chore_tpu.smpl.model import init_params
+
+    js = SMPLH(synthetic_smplh())
+    sp = init_params(pose, np.zeros((1, 10)), np.zeros((1, 3)))
+    sv = np.asarray(js.verts(sp))[0]
+    pelvis = np.asarray(js.pelvis(sp))[0]
+    return sv + (np.array([0, 0, depth]) - pelvis)
