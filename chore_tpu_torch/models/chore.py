@@ -205,11 +205,18 @@ def chore_losses(preds_list, batch, cfg: FieldConfig):
                                              device=x.device)) \
             + cfg.df_leak * F.relu(x - clamp)
 
+    def l1(r):
+        # |r| with the JAX package's gradient: jnp.abs's is 1 at r = 0,
+        # torch.abs's 0. r is exactly 0 where a far point's prediction
+        # lies within ~7e-8 above clamp (clamp + df_leak * (x - clamp)
+        # rounds to clamp), or is exactly its target
+        return torch.where(r >= 0, r, -r)
+
     for preds in preds_list:
         df = preds["df"]  # (B, N, 2)
         # clamped L1, summed over points, mean over the batch
-        loss_h = (leaky_clip(df[..., 0]) - df_h_gt).abs().sum(-1).mean()
-        loss_o = (leaky_clip(df[..., 1]) - df_o_gt).abs().sum(-1).mean()
+        loss_h = l1(leaky_clip(df[..., 0]) - df_h_gt).sum(-1).mean()
+        loss_o = l1(leaky_clip(df[..., 1]) - df_o_gt).sum(-1).mean()
         loss_parts = one_hot_ce(preds["parts"], labels).sum(-1).mean()
         # masked means over ALL elements, the masked-out ones included
         loss_pca = ((preds["pca"] - pca_gt) ** 2

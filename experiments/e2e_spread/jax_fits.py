@@ -7,14 +7,23 @@ the JAX package's fit of frame 0 with the crop centre moved by k x 1e-3 px
 
 Usage, from the repository root (about an hour on 6 CPU cores):
   python3 -m experiments.e2e_spread.jax_fits [--port-seed N]
-      [--save-field F] [--save-init F]
+      [--perturb EPS] [--trace F] [--scenes DIR] [--save-field F]
+      [--save-init F]
   python3 -m experiments.e2e_spread.jax_fits --field F  # fit only
 
-``--field F`` fits a port state dict (e.g. a field the port trained on the
-card, ``port_fits --save``) instead of training. ``--save-field`` /
-``--save-init`` write the trained field / its init as a port state dict
-(``port_fits field F`` / ``port_fits train --init F``)."""
+``--perturb EPS`` scales every start weight by 1 + EPS (as ``port_fits
+train --perturb`` does, in the port's state dict: the same start bits).
+``--trace F`` writes one JSON line per training step (``steps.py``: the
+total, the six terms of ``train_step``'s second output, the LR and the
+batch's sums; ``trace_gap.py`` compares such files). ``--scenes DIR``
+builds the scenes in DIR or reuses the ones there (``port_fits --scenes``
+then trains on the same files). ``--field F`` fits a port state dict
+(e.g. a field the port trained on the card, ``port_fits --save``) instead
+of training. ``--save-field`` / ``--save-init`` write the trained field /
+its init as a port state dict (``port_fits field F`` / ``port_fits train
+--init F``)."""
 import argparse
+import contextlib
 import importlib.util
 import json
 import os
@@ -46,6 +55,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--port-seed", type=int,
                     help="start from the port's init at this seed")
+    ap.add_argument("--perturb", type=float, default=0.0,
+                    help="scale every start weight by 1 + this")
+    ap.add_argument("--trace", help="write per-step JSON lines here")
+    ap.add_argument("--scenes", help="build or reuse the scenes here")
     ap.add_argument("--save-field")
     ap.add_argument("--save-init")
     ap.add_argument("--field", help="fit this port state dict; no training")
@@ -63,14 +76,24 @@ def main(argv=None):
     from chore_tpu_torch.models import build_field
     from chore_tpu_torch.models.convert import params_from_jax, params_to_jax
 
+    from experiments.e2e_spread.steps import trace_to
+
     flax_init = CHOREField.init
     if args.port_seed is not None:
-        tree = params_to_jax(build_field(
+        sd = build_field(
             PortFieldConfig(num_stack=2, num_hourglass=2, net_img_size=256),
-            device="cpu", seed=args.port_seed).state_dict())
+            device="cpu", seed=args.port_seed).state_dict()
+        if args.perturb:
+            sd = {k: v * (1 + args.perturb) if v.is_floating_point() else v
+                  for k, v in sd.items()}
+        tree = params_to_jax(sd)
         # train_field draws its start with model.init(PRNGKey(0), ...)
         CHOREField.init = lambda self, *a, **k: jax.tree_util.tree_map(
             jnp.asarray, tree)
+    elif args.perturb:
+        CHOREField.init = lambda self, *a, **k: jax.tree_util.tree_map(
+            lambda v: v * np.float32(1 + args.perturb),
+            flax_init(self, *a, **k))
     to_port = lambda p: params_from_jax(  # noqa: E731
         jax.tree_util.tree_map(np.asarray, jax.device_get(p)))
     if args.save_init:
@@ -80,8 +103,8 @@ def main(argv=None):
             jnp.zeros((1, 8, 3)), jnp.zeros((1, 2)))
         torch.save(to_port(init), args.save_init)
     out = tempfile.mkdtemp(prefix="e2e_spread_jax_")
-    paths, gt0, smplh = ref.build_scenes(out, 8, np.random.RandomState(0),
-                                         0.18)
+    paths, gt0, smplh = ref.build_scenes(args.scenes or out, 8,
+                                         np.random.RandomState(0), 0.18)
     if args.field:
         model = CHOREField(cfg=FieldConfig(num_stack=2, num_hourglass=2,
                                            net_img_size=256))
@@ -89,14 +112,22 @@ def main(argv=None):
         params = jax.tree_util.tree_map(jnp.asarray, params_to_jax(sd))
         print(json.dumps({"field": args.field}), flush=True)
     else:
+        from chore_tpu.train.trainer import Trainer
+
         t0 = time.time()
-        model, params, _, losses = ref.train_field(
-            paths, out, 500, num_stack=2, img_size=256,
-            verbose=False)
-        CHOREField.init = flax_init
-        print(json.dumps({"start": "port seed %d" % args.port_seed
-                          if args.port_seed is not None
-                          else "JAX PRNGKey(0)",
+        try:
+            with (trace_to(Trainer, args.trace) if args.trace
+                  else contextlib.nullcontext()):
+                model, params, _, losses = ref.train_field(
+                    paths, out, 500, num_stack=2, img_size=256,
+                    verbose=False)
+        finally:
+            CHOREField.init = flax_init
+        start = ("port seed %d" % args.port_seed
+                 if args.port_seed is not None else "JAX PRNGKey(0)")
+        if args.perturb:
+            start += " x (1 + %g)" % args.perturb
+        print(json.dumps({"start": start,
                           "train_s": time.time() - t0,
                           "last_epoch_loss": float(np.mean(losses[-2:]))}),
               flush=True)

@@ -10,7 +10,7 @@ evaluation. One JSON line per fitted field.
 
 Usage, from the repository root:
   python3 -m experiments.e2e_spread.port_fits train [--seed N | --init F]
-      [--perturb EPS]
+      [--perturb EPS] [--trace F] [--scenes DIR]
   python3 -m experiments.e2e_spread.port_fits field F
   python3 -m experiments.e2e_spread.port_fits faults
 
@@ -25,8 +25,15 @@ is and by two faulty fitters, each made by rewriting the source of one
           the raw init as the JAX package's round-4 sil phase did);
   uint8:  uint8 images reach the field as 0..255 (cast to float32 without
           the 1/255 the field applies to integer images).
-``--save DIR`` keeps each trained field as a state dict."""
+``--save DIR`` keeps each trained field as a state dict. ``--scenes DIR``
+builds the scenes in DIR, or reuses the ones there (the tool's resume
+guard): given ``jax_fits --scenes DIR``'s, both packages train on the same
+bytes (the port's own body differs from XLA's in the last float32 bits,
+and so do a few of its boundary samples). ``--trace F`` writes one JSON
+line per training step (``steps.py``; compare with ``trace_gap.py``
+against ``jax_fits --trace``)."""
 import argparse
+import contextlib
 import inspect
 import json
 import os
@@ -91,12 +98,14 @@ def fits(model, scenes, label, dev, **extra):
 
 
 def train(scenes, root, dev, label, save, seed=0, state_dict=None,
-          perturb=0.0):
+          perturb=0.0, trace=None):
     """The tool's training from ``state_dict``, else from the port's init
     at ``seed`` (seed 0: the tool's own start); ``perturb``: every start
     weight scaled by 1 + perturb (how far rounding-sized changes of the
-    start move the trained field)."""
+    start move the trained field); ``trace``: per-step JSON lines."""
     from chore_tpu_torch.models import FieldConfig, build_field
+    from chore_tpu_torch.train import Trainer
+    from experiments.e2e_spread.steps import trace_to
 
     if state_dict is None and (seed != 0 or perturb):
         state_dict = build_field(FieldConfig(num_stack=2, num_hourglass=2,
@@ -106,8 +115,10 @@ def train(scenes, root, dev, label, save, seed=0, state_dict=None,
         state_dict = {k: v * (1 + perturb) if v.is_floating_point() else v
                       for k, v in state_dict.items()}
     t0 = time.perf_counter()
-    model, _, losses = E.train_field(scenes[0], root, EPOCHS, verbose=False,
-                                     device=dev, state_dict=state_dict)
+    with trace_to(Trainer, trace) if trace else contextlib.nullcontext():
+        model, _, losses = E.train_field(scenes[0], root, EPOCHS,
+                                         verbose=False, device=dev,
+                                         state_dict=state_dict)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     info = {"train_s": time.perf_counter() - t0,
@@ -127,11 +138,14 @@ def main(argv=None):
     ap.add_argument("--perturb", type=float, default=0.0,
                     help="train: scale every start weight by 1 + this")
     ap.add_argument("--save", help="keep trained fields in this directory")
+    ap.add_argument("--trace", help="train: write per-step JSON lines here")
+    ap.add_argument("--scenes", help="build or reuse the scenes here")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     root = tempfile.mkdtemp(prefix="e2e_spread_")
-    scenes = E.build_scenes(root, 8, np.random.RandomState(0), device=dev)
+    scenes = E.build_scenes(args.scenes or root, 8,
+                            np.random.RandomState(0), device=dev)
     if args.what == "field":
         from chore_tpu_torch.models import FieldConfig, build_field
 
@@ -150,7 +164,7 @@ def main(argv=None):
             label += f" x (1 + {args.perturb:g})"
         model, info = train(scenes, root, dev, label.replace(" ", "_"),
                             args.save, seed=args.seed, state_dict=sd,
-                            perturb=args.perturb)
+                            perturb=args.perturb, trace=args.trace)
         fits(model, scenes, label, dev, **info)
         return
     model, info = train(scenes, root, dev, "seed_0", args.save)
