@@ -1169,10 +1169,22 @@ def entry_card_vs_cpu(torch, dev, tmp):
                          "point")
 
 
+def device_kernels(events):
+    """The device's own entries of a profiler's ``key_averages()``: its
+    kernels, copies and sets. Ranges (``record_function``: the program's
+    ``chore.<scope>.<phase>``, the optimizer's step) are left out: the
+    card's trace repeats each as a user annotation that spans the kernels
+    it launched, which would count their time twice and the range as a
+    launch."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
 def encode_device_profile(torch, fn, reps=3):
     """(device ms per call, kernel launches per call, top kernels) of
     ``fn()`` under torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1182,8 +1194,7 @@ def encode_device_profile(torch, fn, reps=3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof.key_averages())
     dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
                                getattr(e, "self_cuda_time_total", 0.0))
     top = sorted(kernels, key=dev_us, reverse=True)[:5]
@@ -2412,7 +2423,6 @@ def run_e2e(torch, dev, card, counters, root):
 def profile_call(torch, fn):
     """``fn()`` under torch.profiler: wall ms, device busy share, and the
     top kernels by device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2422,8 +2432,7 @@ def profile_call(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof.key_averages())
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -3387,7 +3396,6 @@ def run_profile(torch, dev, card, out_dir):
     """A release-width fit at its defaults (the silhouette phase on) with
     cut iteration budgets under torch.profiler: device busy share, and the
     kernels and host ops that take the time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from chore_tpu_torch.models.chore import FieldConfig
@@ -3418,7 +3426,7 @@ def run_profile(torch, dev, card, out_dir):
 
     # device kernels only: the aten ops that launched them carry the same
     # time again as their own "self device" time
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(events)
     busy_us = sum(dev_us(e) for e in kernels)
     stages = {k: v["mean_ms"] for k, v in fitter.timer.summary().items()}
     steps = {k: 10 * v for k, v in out["iters"].items()}

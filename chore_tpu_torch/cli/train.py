@@ -3,7 +3,8 @@
 One process per card; with several (``torchrun --nproc_per_node N -m
 chore_tpu_torch.cli.train ...``, which sets RANK/WORLD_SIZE/MASTER_ADDR),
 each loads its shard of the global batch (``batch_size`` per process) and
-``DistributedDataParallel`` averages the gradients.
+``DistributedDataParallel`` averages the gradients. At the end each
+process prints its trainer's phase timing (``Trainer.timer``).
 
 Usage:
   python -m chore_tpu_torch.cli.train <exp_name> [--epochs N]
@@ -82,6 +83,10 @@ def launch_train(cfg: ChoreConfig, exp_root="experiments", epochs=None,
                             val_batches, resume=resume)
     finally:
         train_loader.close()
+    # this process's step phases and set-up (ddp_init; first_s holds the
+    # first step's cuDNN search), as cli.recon prints the fit's
+    print(f"train phase timing (process {process_index()}):",
+          trainer.timer.summary())
     return trainer
 
 

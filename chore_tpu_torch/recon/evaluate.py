@@ -15,7 +15,8 @@ unless ``device="cpu"``): one Procrustes solve (a 3x3 SVD) and one
 object, both directions) are one launch of the kernel K1. Frames of a
 sequence are evaluated by a 4-thread pool, so file IO and sampling overlap
 the device work. ``timer`` holds the per-frame stages: ``io_sampling``,
-``procrustes`` and ``chamfer``.
+``procrustes`` and ``chamfer`` (under a profiler, ``chore.eval.*``
+ranges).
 """
 from __future__ import annotations
 
@@ -68,7 +69,7 @@ def _aligned_chamfer(gt_smpl, gt_obj, rec_smpl, rec_obj, gt_verts, rec_verts,
     arrays (GT fits and reconstructions share mesh topology), then the
     Chamfer of each mesh's surface samples. Tensors on one device; returns
     (err_smpl, err_obj) as 0-d tensors."""
-    timer = timer or StepTimer()
+    timer = timer or StepTimer("eval")
     with timer.phase("procrustes"):
         r, t, s = similarity_transform(rec_verts, gt_verts)
         rec_smpl_a = apply_transform(rec_smpl, r, t, s)
@@ -95,7 +96,7 @@ class ReconEvaluator:
         self.occ_ratio = occ_ratio
         self.device = resolve_device(device)
         self.errors_dict = {}
-        self.timer = StepTimer()  # per-frame stages, see the module doc
+        self.timer = StepTimer("eval")  # per-frame stages, see the module doc
 
     # ------------------------------------------------------------------ #
     def _sample(self, mesh, seed):

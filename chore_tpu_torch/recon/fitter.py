@@ -148,7 +148,8 @@ class ReconFitter:
         self.hand_prior = make_hand_prior(assets_dir, dev)
         self.camera = PerspectiveCamera(crop_size=cfg.crop_size)
         self.record_traces = record_traces
-        self.timer = StepTimer()  # per-stage wall time, see timer.summary()
+        # per-stage wall time (timer.summary()); chore.fit.* ranges
+        self.timer = StepTimer("fit")
 
     # ------------------------------------------------------------------ #
     def _query(self, feats, tmpx, points, crop_center):

@@ -40,7 +40,7 @@ from chore_tpu_torch.train.torch_import import (
     adam_state_by_name,
     load_torch_checkpoint,
 )
-from chore_tpu_torch.utils.profiling import trace
+from chore_tpu_torch.utils.profiling import StepTimer, trace
 
 LOSS_NAMES = ("df_h", "df_o", "parts", "pca", "smpl_center", "obj_center")
 
@@ -99,6 +99,11 @@ class Trainer:
       ck_period_min: wall-clock minutes between validation + checkpoint.
       profile_dir: write a ``torch.profiler`` trace of steps
         2..2+profile_steps there.
+
+    ``timer`` times each step's phases (``forward``, ``loss``,
+    ``backward``, ``optimizer``) and, with several processes, the
+    ``DistributedDataParallel`` construction (``ddp_init``); under a
+    profiler each is the range ``chore.train.<phase>``.
     """
 
     def __init__(self, model, exp_dir, base_lr=1e-3, milestones=(15, 25),
@@ -125,11 +130,15 @@ class Trainer:
             # release shape. The flag is the process's: convolutions run
             # later in it (a fit) time theirs too.
             torch.backends.cudnn.benchmark = True
+        self.timer = StepTimer("train")
         self.net = model
         if process_count() > 1:
-            self.net = torch.nn.parallel.DistributedDataParallel(
-                model, device_ids=([self.device.index]
-                                   if self.device.type == "cuda" else None))
+            # creates the communicators and broadcasts the parameters
+            with self.timer.phase("ddp_init"):
+                self.net = torch.nn.parallel.DistributedDataParallel(
+                    model, device_ids=([self.device.index]
+                                       if self.device.type == "cuda"
+                                       else None))
         self.epoch = 0
         self.training_time = 0.0
         self.global_step = 0
@@ -142,22 +151,28 @@ class Trainer:
         optim.set_lr(self.opt, lr)
         return lr
 
-    def _loss(self, net, batch):
-        preds = net(batch["images"], batch["points"], batch["crop_center"])
-        return chore_losses(preds, batch, self.cfg)
-
     def train_step(self, batch):
         """One optimizer step on this process's shard of the global batch
         (numpy or tensors). Returns (loss, parts) as device scalars,
         averaged over the processes (the global batch's loss)."""
-        batch = shard_batch(batch, self.device)
-        loss, parts = self._loss(self.net, batch)
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        self.opt.step()
-        self.global_step += 1
-        stats = all_mean(torch.stack(
-            [loss.detach()] + [parts[k].detach() for k in LOSS_NAMES]))
+        timer = self.timer
+        with timer.phase("forward"):
+            batch = shard_batch(batch, self.device)
+            preds = self.net(batch["images"], batch["points"],
+                             batch["crop_center"])
+        with timer.phase("loss"):
+            loss, parts = chore_losses(preds, batch, self.cfg)
+            # autograd keeps what the backward pass needs; the rest of the
+            # predictions are freed here, not held through it
+            del preds
+        with timer.phase("backward"):
+            self.opt.zero_grad(set_to_none=True)
+            loss.backward()
+        with timer.phase("optimizer"):
+            self.opt.step()
+            self.global_step += 1
+            stats = all_mean(torch.stack(
+                [loss.detach()] + [parts[k].detach() for k in LOSS_NAMES]))
         return stats[0], dict(zip(LOSS_NAMES, stats[1:]))
 
     @torch.no_grad()
@@ -181,7 +196,9 @@ class Trainer:
             part = local_batch_slice(n_real + pad)
             local = shard_batch({k: v[part] for k, v in batch.items()},
                                 self.device)
-            loss, _ = self._loss(self.model, local)
+            loss, _ = chore_losses(
+                self.model(local["images"], local["points"],
+                           local["crop_center"]), local, self.cfg)
             losses.append(float(all_mean(loss)))
             weights.append(n_real)
         if not losses:

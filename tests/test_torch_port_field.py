@@ -2,8 +2,8 @@
 with the same weights (``params_from_jax``), forward on every head of every
 stack, the point gradient of the frozen query, and the last-stack query;
 ``HGFilter(grouped_heads=True)`` (the HGFilterGConv variant) on the same
-weights; the profiling helpers (matmul/conv FLOP count, named regions,
-``StepTimer.report``).
+weights; a ``StepTimer`` phase as a named range of the profiler's trace,
+and its report.
 Tolerances: 1e-4 absolute on heads of magnitude ~0.05-5 (two hourglass
 stacks of f32 convs summed in other orders)."""
 import jax
@@ -131,64 +131,28 @@ def test_grouped_heads_hgfilter(num_stack):
         TH(features=16, out_dim=24, grouped_heads=True)
 
 
-def test_flops_estimate_equals_the_reference(fields):
-    """2 FLOPs per multiply-accumulate of the matmuls and convolutions of
-    one field forward (encode + query of 8 points), 1 stack at 64^2:
-    exactly ``chore_tpu``'s jaxpr count for the port's mixed-precision
-    field, whose bicubic upsampling is its two matmuls as in the JAX
-    package; the float32 field upsamples through ``F.interpolate`` (no
-    matmul), and counts exactly those matmuls' FLOPs less."""
-    from chore_tpu.models import CHOREField, FieldConfig
-    from chore_tpu.utils.profiling import flops_estimate as jflops
-    from chore_tpu_torch.models.chore import FieldConfig as TFC
-    from chore_tpu_torch.models.chore import build_field
-    from chore_tpu_torch.models.convert import params_from_jax
-    from chore_tpu_torch.utils.profiling import flops_estimate as tflops
-
-    _, params = jax_field(num_stack=1)
-    img, pts, cc = np.zeros((1, 64, 64, 5), np.float32), np.zeros(
-        (1, 8, 3), np.float32), np.zeros((1, 2), np.float32)
-    jm = CHOREField(cfg=FieldConfig(num_stack=1))
-    want = jflops(lambda p: jm.apply(p, img, pts, cc, train=False), params)
-    sd = params_from_jax(jax.tree_util.tree_map(np.asarray, params))
-    got = {}
-    for dt in (torch.bfloat16, torch.float32):
-        tm = build_field(TFC(num_stack=1), device="cpu", state_dict=sd,
-                         encoder_dtype=dt)
-
-        def forward():
-            feats, tmpx = tm.encode(t(img), train=False)
-            return tm.query_last(feats, tmpx, t(pts), t(cc))
-
-        got[dt] = tflops(forward)
-    assert got[torch.bfloat16] == want > 1e9
-    # the hourglass (depth 2, at 16^2) upsamples 256 channels 4->8 and
-    # 8->16: rows, then columns, 2 FLOPs per tap of the (2n, n) matrices
-    ups = sum(2 * 256 * (2 * n_) * n_ * n_ + 2 * 256 * (2 * n_) * (2 * n_)
-              * n_ for n_ in (4, 8))
-    assert got[torch.float32] == want - ups
-
-
 def test_annotate_and_step_timer_report(tmp_path):
-    """A named region shows on the profiler's timeline; the timer's report
-    is its summary, written as JSON when a path is given."""
+    """A timer's phase is a named range on the profiler's timeline
+    (``chore.<scope>.<phase>``, holding the ops it ran); the timer's
+    report is its summary, written as JSON when a path is given."""
     import json
 
     from torch.profiler import profile
 
-    from chore_tpu_torch.utils.profiling import StepTimer, annotate
+    from chore_tpu_torch.utils.profiling import StepTimer
 
+    timer = StepTimer("port")
     with profile() as prof:
-        with annotate("port_region"):
+        with timer.phase("region"):
             torch.ones(4).sum()
-    assert "port_region" in {e.key for e in prof.key_averages()}
-    timer = StepTimer()
-    with timer.phase("a"):
-        pass
+    ev = {e.name: e for e in prof.events()}
+    span, op = ev["chore.port.region"], ev["aten::sum"]
+    assert span.time_range.start <= op.time_range.start
+    assert op.time_range.end <= span.time_range.end
     path = tmp_path / "timer.json"
     rep = timer.report(str(path))
     assert rep == timer.summary() == json.loads(path.read_text())
-    assert rep["a"]["count"] == 1 and timer.report() == rep
+    assert rep["region"]["count"] == 1 and timer.report() == rep
 
 
 def test_build_field_needs_a_device_or_cpu(monkeypatch):

@@ -4,7 +4,8 @@ writes (preprocessed npz frames, JPEG photos and masks): one epoch of
 the config from configs/<exp>.json) writes a checkpoint, metrics.jsonl
 and the val_min pointer; a second call with more epochs resumes from
 that checkpoint (and writes the profiler trace of the steps from the
-second on), and ``chore_tpu``'s ``load_checkpoint`` reads the result."""
+second on, and prints its steps' phase timing), and ``chore_tpu``'s
+``load_checkpoint`` reads the result."""
 import json
 import os
 import pickle
@@ -20,7 +21,7 @@ from test_torch_port_util import (
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 
-def test_launch_train_writes_and_resumes(tmp_path, monkeypatch):
+def test_launch_train_writes_and_resumes(tmp_path, monkeypatch, capsys):
     from chore_tpu_torch.cli import train as cli
     from chore_tpu_torch.config import ChoreConfig, save_config
 
@@ -49,6 +50,12 @@ def test_launch_train_writes_and_resumes(tmp_path, monkeypatch):
     trainer = cli.launch_train(cfg, "exps", epochs=2, device="cpu",
                                profile_dir=str(tmp_path / "trace"))
     assert trainer.epoch == 2 and trainer.global_step == 4
+    # the resumed run's two steps, phase by phase, printed at its end
+    timing = trainer.timer.summary()
+    assert {k: v["count"] for k, v in timing.items()} == {
+        "forward": 2, "loss": 2, "backward": 2, "optimizer": 2}
+    assert ("train phase timing (process 0): " + str(timing)
+            in capsys.readouterr().out)
     # steps 2.. were traced (the window closes when training ends)
     assert {"trace.json", "ops.txt"} <= set(os.listdir(tmp_path / "trace"))
     assert len(os.listdir(exp / "checkpoints")) == 2
